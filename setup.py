@@ -8,7 +8,8 @@ setup(
         "contrastive encoders (CLIP/CLAP), mapping networks, GPT-2 decoding, "
         "preprocess/train/inference/eval CLIs"
     ),
-    packages=find_packages(include=["clipcap_tpu", "clipcap_tpu.*"]),
+    packages=find_packages(include=["clipcap_tpu", "clipcap_tpu.*",
+                                    "clipcap_tpu_torch", "clipcap_tpu_torch.*"]),
     # Ship the C++ scorer sources + Makefile so the native extension can
     # auto-build on first use (clipcap_tpu.native.build); the reference
     # instead packaged Java jars (its setup.py:20).
@@ -17,6 +18,7 @@ setup(
         # SPICE parser treebank + pretrained model cache and the METEOR
         # compact synonym table — runtime data the scorers load by default.
         "clipcap_tpu.eval.data": ["*.txt", "*.json.gz"],
+        "clipcap_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
     },
     python_requires=">=3.10",
     install_requires=[

@@ -49,6 +49,10 @@ def pytest_configure(config):
         "slow: multi-minute integration tests (2-process clusters, "
         "full-pipeline CLIs, large virtual-mesh programs, heavy parity "
         "sweeps); deselect with -m 'not slow'")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the PyTorch port's CUDA kernels); skips "
+        "without one")
 
 
 @pytest.fixture
