@@ -19,7 +19,19 @@ Phases (any failure exits non-zero before the last line):
    each kernel against its twin;
 5. a ``torch.profiler`` trace of one batch of each timed workload: wall
    time, device busy time and idle share, kernel launches, and the kernels
-   that take the most device time.
+   that take the most device time;
+6. training at full width (GPT-2 124M, the 8-layer mapper, 512-d
+   embeddings) on a seeded dataset of 650 rows written in the preprocess
+   stage's layout, through ``clipcap_tpu_torch.train``'s entry point:
+   (a) prefix-only and (b) mapper + GPT-2, bf16, batch 64, the fused-AdamW
+   kernel, one epoch.  Gates: finite losses, ``fused_adamw.launches`` up by
+   at least the step count in each run, the final ``.npz`` loads on the
+   card and captions an embedding; the kernel against its twin at the
+   full-finetune parameter set (bit for bit), and three fp32 full-finetune
+   steps through the kernel against the same steps through the twin
+   (parameters within 0.01·Σlr).  Information: ms per train step and
+   samples/s of (a) and (b), kernel and twin ms, and a ``torch.profiler``
+   breakdown of one full-finetune step.
 
 Output: one line per finding, then the kernels as one JSON object, then the
 card's ``name, power.limit``, then ``{"ok": true, "device": {...}}``.
@@ -29,8 +41,13 @@ import os
 os.environ.setdefault("HF_HUB_OFFLINE", "1")          # no hub retries offline
 os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
 
+import contextlib  # noqa: E402
+import copy  # noqa: E402
+import io  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import platform  # noqa: E402
+import re  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
@@ -46,6 +63,9 @@ import torch  # noqa: E402
 ROOT = Path(__file__).resolve().parent
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 P, N_NEW, K = 10, 67, 5           # prefix length, new tokens, beam size
+TRAIN_ROWS, TRAIN_BATCH, EMB = 650, 64, 512    # 11 steps, the last one padded
+MODEL_ARGS = ["--language-model", "gpt2", "--prefix-length", str(P), "--projection-length",
+              str(P), "--transformer-layers", "8", "--transformer-attention-heads", "8"]
 
 
 def card() -> str:
@@ -184,6 +204,7 @@ def run_slice(dev, workdir: Path):
     from clipcap_tpu_torch.inference.beam import BeamParams, beam_search_batched
     from clipcap_tpu_torch.models import gpt2
     from clipcap_tpu_torch.models.clipcap import init_clipcap
+    from clipcap_tpu_torch.models.gpt2 import get_gpt2_config
     from clipcap_tpu_torch.ops.attention import sdpa_packed
     from clipcap_tpu_torch.ops.flash_decode import flash_decode, flash_decode_ref
     from clipcap_tpu_torch.train.checkpoint import save_params
@@ -197,7 +218,10 @@ def run_slice(dev, workdir: Path):
                                                  encoder_model_variant="ViT-B/32",
                                                  encoder_embedding_size=512))
     t0 = time.perf_counter()
-    save_params(str(workdir / "model.npz"), init_clipcap(config, seed=0).params())
+    # Seeded GPT-2 even where HF weights sit on disk (init_clipcap without
+    # lm_config would load them).
+    model = init_clipcap(config, lm_config=get_gpt2_config("gpt2"), seed=0)
+    save_params(str(workdir / "model.npz"), model.params())
     save_yaml_config(config, str(workdir / "config.yaml"))
     print(f"slice: seeded full-width model saved in {time.perf_counter() - t0:.1f} s")
 
@@ -339,6 +363,242 @@ def profile(work, x, batch_ms: float, label: str, tag: str, top: int = 8):
               f"{e.key[:90]}")
 
 
+def sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def train_config():
+    from clipcap_tpu_torch.config import Config, EncoderConfig
+
+    return Config(language_model="gpt2", prefix_length=P, projection_length=P,
+                  transformer_layers=8, transformer_attention_heads=8,
+                  encoder_config=EncoderConfig(encoder_model_name="clip",
+                                               encoder_model_variant="ViT-B/32",
+                                               encoder_embedding_size=EMB))
+
+
+def write_train_dataset(root: Path, rows: int = TRAIN_ROWS, dim: int = EMB, seed: int = 0):
+    """Phase 6a: seeded fp32 embeddings and captions of 8-80 bytes (8-80
+    tokens under the byte tokenizer used offline) in two partitions, with
+    the preprocess stage's JAX-free writer."""
+    from clipcap_tpu.preprocess.writer import PartitionWriter, write_encoder_config
+    from clipcap_tpu.utils.tokenizer import get_tokenizer
+
+    rng = np.random.default_rng(seed)
+    words = ("a man woman dog cat red blue small large sits stands near on the of with "
+             "street park table window car tree field beach two three playing holding").split()
+    captions = []
+    for _ in range(rows):
+        n = int(rng.integers(8, 81))
+        text = ""
+        while len(text) < n:
+            text += str(rng.choice(words)) + " "
+        captions.append(text[:n - 1] + ".")
+    embeds = rng.standard_normal((rows, dim)).astype(np.float32)
+    write_encoder_config(train_config().encoder_config, str(root))
+    for i, (lo, hi) in enumerate(((0, 400), (400, rows))):
+        writer = PartitionWriter(i, str(root), 2)
+        writer({"embeddings": embeds[lo:hi], "text": captions[lo:hi]})
+        writer.flush()
+    lengths = [len(t) for t in get_tokenizer("gpt2").batch_encode_plus(captions)["input_ids"]]
+    print(f"train: dataset of {rows} rows x {dim} fp32, captions of {min(lengths)}-"
+          f"{max(lengths)} tokens, {sum(n > 64 for n in lengths)} cut at 64")
+    return embeds
+
+
+class _Tee(io.TextIOBase):
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for s in self.streams:
+            s.write(text)
+        return len(text)
+
+
+def train_cli(dev, root: Path, out: Path, label: str, extra, embedding, model_args=MODEL_ARGS):
+    """Phase 6b: one run of ``clipcap_tpu_torch.train``'s entry point on
+    the card, then its final checkpoint through ``load`` and
+    ``generate_beam``.  Returns the fused-AdamW launches of the run."""
+    from clipcap_tpu_torch import generate_beam, load
+    from clipcap_tpu_torch.ops.fused_adamw import fused_adamw
+    from clipcap_tpu_torch.train.train import start_training
+
+    device = "cpu" if torch.device(dev).type == "cpu" else str(torch.device(dev).index or 0)
+    argv = ["--device", device, "--input-dataset", str(root), "--output-folder", str(out),
+            "--fp-precision", "16", "--batch-size", str(TRAIN_BATCH), "--fused-optimizer",
+            "true", "--scheduler-warmup-steps", "2", "--epochs", "1",
+            "--logging-frequency", "1", *model_args, *extra]
+    log = io.StringIO()
+    fused_adamw.launches = 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(), contextlib.redirect_stdout(_Tee(sys.stdout, log)):
+        warnings.simplefilter("ignore")               # seeded GPT-2: no weights offline
+        rc = start_training(argv)
+    sync(dev)
+    launches = fused_adamw.launches
+    seconds = time.perf_counter() - t0
+    losses = [float(x) for x in re.findall(r" loss (\S+) ", log.getvalue())]
+    steps = math.ceil(TRAIN_ROWS / TRAIN_BATCH)
+    print(f"train ({label}): exit {rc} in {seconds:.1f} s (model build, {len(losses)} steps, "
+          f"checkpoints); losses {[round(x, 4) for x in losses]}; fused_adamw launches "
+          f"{launches}")
+    if rc != 0 or len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train ({label}): exit {rc}, losses {losses}")
+    if launches < steps:
+        raise AssertionError(f"train ({label}): {launches} fused_adamw launches for {steps} steps")
+    names = sorted(os.listdir(out))
+    if names != ["clipcap_config.yaml", "clipcap_epoch_0.npz", "clipcap_final.npz"]:
+        raise AssertionError(f"train ({label}): wrote {names}")
+    model, tokenizer = load(str(out / "clipcap_final.npz"), str(out / "clipcap_config.yaml"),
+                            device=dev)
+    prefix = model.transformer_mapper(embedding[None])
+    caption = generate_beam(model, tokenizer, prefix, number_to_generate=1, beam_size=K)
+    if len(caption) != 1 or not isinstance(caption[0], str) or not torch.isfinite(prefix).all():
+        raise AssertionError(f"train ({label}): the final checkpoint did not caption")
+    print(f"train ({label}): final checkpoint loaded on {dev} and captioned: {caption[0]!r}")
+    return launches
+
+
+def check_adamw(model, dev, tag: str):
+    """Phase 6c: the kernel against its twin on the full-finetune parameter
+    set (every tensor of GPT-2 + mapper), one step from identical inputs:
+    bit for bit (tolerance 0).  Then kernel and twin device time."""
+    from clipcap_tpu_torch.ops.fused_adamw import adamw_scalars, fused_adamw, fused_adamw_ref
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    params = [p.detach().to(dev, copy=True) for p in model.parameters()]
+    grads = [torch.randn(p.shape, generator=g, device=dev) for p in params]
+    mu = [torch.randn(p.shape, generator=g, device=dev) * 1e-2 for p in params]
+    nu = [torch.rand(p.shape, generator=g, device=dev) * 1e-4 for p in params]
+    twin = [[t.clone() for t in group] for group in (params, grads, mu, nu)]
+    s = adamw_scalars(1e-4, 0.9, 0.999, 1e-8, 0.01, count=3)
+    fused_adamw(params, grads, mu, nu, s)
+    fused_adamw_ref(*twin, s)
+    sync(dev)
+    err = max((a - b).abs().max().item() for got, want in zip((params, mu, nu),
+                                                               (twin[0], twin[2], twin[3]))
+              for a, b in zip(got, want))
+    n = sum(p.numel() for p in params)
+    print(f"kernel fused_adamw full finetune ({len(params)} tensors, {n} elements) fp32: "
+          f"max|d| {err:.3g} (tol 0: bit for bit)")
+    if err != 0:
+        raise AssertionError(f"fused_adamw differs from its twin by {err}")
+    ms = (cuda_ms(lambda: fused_adamw(params, grads, mu, nu, s)),
+          cuda_ms(lambda: fused_adamw_ref(*twin, s)))
+    print(f"time [{tag}] fused_adamw {len(params)} tensors, {n} elements: kernel {ms[0]:.4f} "
+          f"ms ({28 * n / ms[0] / 1e6:.1f} GB/s at 28 bytes per element), twin {ms[1]:.4f} ms")
+    return err, ms
+
+
+def three_steps(base, dev, batches):
+    """Phase 6d: three fp32 full-finetune steps on identical batches, once
+    through the kernel and once with the optimizer patched to the twin
+    (here only; the port has no switch).  Parameters must agree within
+    0.01·Σlr: a tensor the kernel skipped, or a wrong update, moves by
+    about lr."""
+    from clipcap_tpu_torch.ops.fused_adamw import fused_adamw, fused_adamw_ref
+    from clipcap_tpu_torch.train import state as state_mod
+    from clipcap_tpu_torch.train.step import train_step
+
+    runs = []
+    for patched in (False, True):
+        model = copy.deepcopy(base).to(dev)
+        tx = state_mod.make_optimizer(1e-4, 1, 3, train_language_model=True, fused=True)
+        st = state_mod.create_train_state(model, tx)
+        n0 = fused_adamw.launches
+        patch = (mock.patch.object(state_mod, "fused_adamw", fused_adamw_ref) if patched
+                 else contextlib.nullcontext())
+        with patch:
+            for tokens, embeds in batches[:3]:
+                train_step(st, tokens, embeds, tx=tx, dtype=torch.float32, remat=True)
+        sync(dev)
+        runs.append((model, fused_adamw.launches - n0))
+        sum_lr = sum(tx.schedule(i) for i in range(3))
+    (kern, n_kern), (twin, n_twin) = runs
+    if n_kern != 3 or n_twin != 0:
+        raise AssertionError(f"kernel run launched {n_kern}, twin run {n_twin}")
+    diffs = [(a - b).abs() for a, b in zip(kern.parameters(), twin.parameters())]
+    d = max(x.max().item() for x in diffs)
+    unequal = sum(int((x != 0).sum()) for x in diffs)
+    total = sum(x.numel() for x in diffs)
+    print(f"train: 3 fp32 full-finetune steps, kernel ({n_kern} launches) vs twin (0): "
+          f"max|d param| {d:.3g} (bound 0.01 x sum lr = {0.01 * sum_lr:.3g}); "
+          f"{unequal} of {total} parameters not bit-equal")
+    if not d <= 0.01 * sum_lr:
+        raise AssertionError(f"kernel and twin training differ by {d}")
+
+
+def time_training(base, dev, batches, tag: str, trials: int = 5):
+    """Phase 6e: ms per train step (bf16, batch 64) of (a) prefix-only and
+    (b) full finetune with the fused-AdamW kernel, and of (b) with the
+    plain optax-order AdamW: median of trials after warm-up, and the peak
+    device memory of each.  Returns the last run's step function (fused
+    full finetune), for the profile, and the medians."""
+    from clipcap_tpu_torch.train.state import create_train_state, make_optimizer
+    from clipcap_tpu_torch.train.step import train_step
+
+    out = {}
+    for label, full, fused in (("a prefix-only", False, True),
+                               ("b full finetune, plain AdamW", True, False),
+                               ("b full finetune", True, True)):
+        model = copy.deepcopy(base).to(dev)
+        tx = make_optimizer(2e-5, 2, 1000, train_language_model=full, fused=fused)
+        st = create_train_state(model, tx)
+
+        def step(batch, st=st, tx=tx, full=full):
+            return train_step(st, *batch, tx=tx, dtype=torch.bfloat16, remat=full)
+
+        torch.cuda.reset_peak_memory_stats()
+        for batch in batches[:2]:
+            step(batch)
+        sync(dev)
+        per_trial = []
+        for _ in range(trials):
+            t0 = time.perf_counter()
+            for batch in batches:
+                step(batch)
+            sync(dev)
+            per_trial.append((time.perf_counter() - t0) / len(batches) * 1e3)
+        med = statistics.median(per_trial)
+        print(f"time [{tag}] train ({label}) GPT-2 b{TRAIN_BATCH} bf16: ms/step per trial "
+              f"{[round(x, 2) for x in per_trial]}; median {med:.2f} ms, "
+              f"{TRAIN_BATCH * 1e3 / med:.1f} samples/s; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        out[label] = med
+    return step, out
+
+
+def run_training(dev, workdir: Path, tag: str):
+    """Phase 6: training at full width.  Returns the fused-AdamW row of the
+    kernels JSON."""
+    from clipcap_tpu_torch.models.clipcap import init_clipcap
+    from clipcap_tpu_torch.train.dataloader import get_dataloader
+
+    root = workdir / "dataset"
+    embeds = write_train_dataset(root)
+    embedding = torch.from_numpy(embeds[0]).to(dev)
+    launches = 0
+    for label, extra in (("a prefix-only", []), ("b full finetune", ["--train-language-model",
+                                                                     "true"])):
+        launches += train_cli(dev, root, workdir / label.split()[0], label, extra, embedding)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        base = init_clipcap(train_config())
+    err, ms = check_adamw(base, dev, tag)
+    loader, _ = get_dataloader(str(root), language_model="gpt2", batch_size=TRAIN_BATCH)
+    batches = [(torch.from_numpy(t).to(dev), torch.from_numpy(e).to(dev)) for t, e in loader]
+    three_steps(base, dev, batches)
+    step, medians = time_training(base, dev, batches[:4], tag)
+    profile(step, batches[0], medians["b full finetune"], "train step, full finetune b64 bf16",
+            tag)
+    return {"name": "fused_adamw", "route": "cuda",
+            "source": "clipcap_tpu_torch/csrc/fused_adamw.cu",
+            "replaces": "clipcap_tpu/ops/fused_adamw.py:125",
+            "launches": launches, "max_abs_err": err, "ms": ms[0], "plain_ms": ms[1]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU", file=sys.stderr)
@@ -381,6 +641,9 @@ def main() -> int:
     profile(beam, beam_inputs[0], 128e3 / statistics.median(beam_cps), "beam-5 GPT-2 b128",
             name_limit)
     profile(vit, vit_inputs[0], 512e3 / statistics.median(embeds), "ViT-B/32 b512", name_limit)
+    del beam, beam_inputs, vit, vit_inputs, model, encoder
+    with tempfile.TemporaryDirectory(dir=build_root) as tmp:
+        adamw_row = run_training(dev, Path(tmp), name_limit)
     if "jax" in sys.modules:
         raise AssertionError("the port loaded jax")
 
@@ -395,6 +658,7 @@ def main() -> int:
          "replaces": "clipcap_tpu/ops/attention.py:244",
          "launches": launches["sdpa_packed"], "max_abs_err": errors["sdpa_packed"],
          "ms": times["sdpa_packed"][0], "plain_ms": times["sdpa_packed"][1]},
+        adamw_row,
     ]
     print(json.dumps({"kernels": kernels}))
     print(name_limit)

@@ -16,7 +16,7 @@ packages the same weights.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -130,9 +130,9 @@ def _set(tree: dict, path: str, value) -> None:
 Parts = List[Tuple[List[Rule], int]]  # (rules, layer count) per tower
 
 
-def load_params(module: nn.Module, params: dict, parts: Parts) -> nn.Module:
-    """Copy a parameter tree (numpy or array-likes) into ``module``; every
-    weight of the module must be named by a rule."""
+def state_dict_from_tree(params: dict, parts: Parts) -> Dict[str, torch.Tensor]:
+    """A parameter tree (numpy or array-likes, the JAX layout) as a state
+    dict of fp32 CPU tensors in the modules' layout."""
     sd: Dict[str, torch.Tensor] = {}
     for rules, layers in parts:
         for key, path, layout in rules:
@@ -140,13 +140,14 @@ def load_params(module: nn.Module, params: dict, parts: Parts) -> nn.Module:
             for k, a in ([(key.format(i=i), arr[i]) for i in range(layers)]
                          if "{i}" in key else [(key, arr)]):
                 sd[k] = torch.from_numpy(np.array(_to_module(a, layout), order="C"))
-    module.load_state_dict(sd)
-    return module
+    return sd
 
 
-def module_params(module: nn.Module, parts: Parts) -> dict:
-    """The parameter tree (numpy fp32) of ``module`` — the JAX layout."""
-    sd = {k: v.detach().float().cpu().numpy() for k, v in module.state_dict().items()}
+def tree_from_state_dict(sd: Mapping[str, torch.Tensor], parts: Parts) -> dict:
+    """A state dict in the modules' layout as a parameter tree (numpy
+    fp32, the JAX layout).  Reads parameters and anything shaped like them
+    (the optimizer's moments)."""
+    sd = {k: v.detach().float().cpu().numpy() for k, v in sd.items()}
     tree: dict = {}
     for rules, layers in parts:
         for key, path, layout in rules:
@@ -157,6 +158,18 @@ def module_params(module: nn.Module, parts: Parts) -> dict:
                 value = _to_tree(sd[key], layout)
             _set(tree, path, np.array(value, order="C"))
     return tree
+
+
+def load_params(module: nn.Module, params: dict, parts: Parts) -> nn.Module:
+    """Copy a parameter tree into ``module``; every weight of the module
+    must be named by a rule."""
+    module.load_state_dict(state_dict_from_tree(params, parts))
+    return module
+
+
+def module_params(module: nn.Module, parts: Parts) -> dict:
+    """The parameter tree (numpy fp32) of ``module`` — the JAX layout."""
+    return tree_from_state_dict(module.state_dict(), parts)
 
 
 def _gpt2_parts(cfg: GPT2Config) -> Parts:
@@ -172,6 +185,36 @@ def _mapper_parts(cfg: MapperConfig) -> Parts:
 
 def _clip_parts(cfg: CLIPConfig) -> Parts:
     return [(CLIP_VISUAL_RULES, cfg.vision.layers), (CLIP_TEXT_RULES, cfg.text.layers)]
+
+
+def _clipcap_parts(model) -> Dict[str, tuple]:
+    """Each subtree of the ClipCap parameter tree ``{"mapper", "lm"}``: the
+    name prefix of its weights in ``ClipCapModel`` and its rules."""
+    return {"mapper": ("transformer_mapper.", _mapper_parts(model.mapper_config)),
+            "lm": ("language_model.", _gpt2_parts(model.lm_config))}
+
+
+def clipcap_tree(model, named: Mapping[str, torch.Tensor]) -> dict:
+    """Tensors named as ``model``'s parameters (the parameters themselves,
+    their grads or their moments) → the JAX tree ``{"mapper", "lm"}``,
+    with only the subtrees that ``named`` covers."""
+    tree = {}
+    for sub, (prefix, parts) in _clipcap_parts(model).items():
+        sd = {k[len(prefix):]: v for k, v in named.items() if k.startswith(prefix)}
+        if sd:
+            tree[sub] = tree_from_state_dict(sd, parts)
+    return tree
+
+
+def clipcap_named(model, tree: dict) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`clipcap_tree`: fp32 CPU tensors by parameter
+    name, for the subtrees ``tree`` has."""
+    named = {}
+    for sub, (prefix, parts) in _clipcap_parts(model).items():
+        if sub in tree:
+            sd = state_dict_from_tree(tree[sub], parts)
+            named.update({prefix + k: v for k, v in sd.items()})
+    return named
 
 
 def gpt2_from_params(params: dict, cfg: GPT2Config) -> GPT2:

@@ -1,10 +1,10 @@
 """The assembled ClipCap model: mapping network + GPT-2 decoder.
 
-Counterpart of ``clipcap_tpu/models/clipcap.py`` (serving half).
-:class:`ClipCapModel` holds the reference's two submodules,
-``language_model`` and ``transformer_mapper``, so its state dict carries the
-reference's key prefixes; :func:`load` reads the JAX package's ``.npz`` +
-YAML checkpoints.
+Counterpart of ``clipcap_tpu/models/clipcap.py``.  :class:`ClipCapModel`
+holds the reference's two submodules, ``language_model`` and
+``transformer_mapper``, so its state dict carries the reference's key
+prefixes; :func:`load` reads the JAX package's ``.npz`` + YAML checkpoints;
+:func:`clipcap_loss` is the training loss.
 """
 from __future__ import annotations
 
@@ -12,11 +12,16 @@ from typing import Any, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from clipcap_tpu_torch.config import Config
-from clipcap_tpu_torch.models.gpt2 import GPT2, GPT2Config, get_gpt2_config, init_gpt2
-from clipcap_tpu_torch.models.mapper import MapperConfig, TransformerMapper, init_mapper
+from clipcap_tpu_torch.models.gpt2 import (GPT2, GPT2Config, get_gpt2_config, gpt2_apply,
+                                           gpt2_embed_tokens, init_gpt2, lm_logits)
+from clipcap_tpu_torch.models.mapper import (MapperConfig, TransformerMapper, init_mapper,
+                                             mapper_apply)
 from clipcap_tpu_torch.utils.device import resolve_device
+
+Tensor = torch.Tensor
 
 
 class ClipCapModel(nn.Module):
@@ -89,14 +94,21 @@ def model_from_params(config: Config, params: dict,
 
 def init_clipcap(config: Config, lm_config: Optional[GPT2Config] = None,
                  seed: int = 0) -> ClipCapModel:
-    """A ClipCap model with seeded weights — the JAX package's
-    ``init_clipcap(config, lm_config=…, seed=…)`` draws (there are no
-    pretrained weights offline)."""
-    lm_config = lm_config or get_gpt2_config(config.language_model)
-    mapper_config = build_mapper_config(config, lm_config.n_embd)
-    params = {"mapper": init_mapper(mapper_config, seed=seed),
-              "lm": init_gpt2(lm_config, seed=seed)}
-    return model_from_params(config, params, lm_config)
+    """A ClipCap model as the JAX package's ``init_clipcap`` builds it: the
+    mapper from ``init_mapper(seed)``; GPT-2 from ``init_gpt2(lm_config,
+    seed)`` when ``lm_config`` is given, else resolved by name
+    (``hf_import.load_gpt2``: HF weights on disk, or seeded with a
+    warning; never fetched)."""
+    from clipcap_tpu_torch.convert import gpt2_from_params, mapper_from_params
+    from clipcap_tpu_torch.models.hf_import import load_gpt2
+
+    if lm_config is None:
+        lm = load_gpt2(config.language_model)
+    else:
+        lm = gpt2_from_params(init_gpt2(lm_config, seed=seed), lm_config)
+    mapper_config = build_mapper_config(config, lm.config.n_embd)
+    return ClipCapModel(config, lm,
+                        mapper_from_params(init_mapper(mapper_config, seed=seed), mapper_config))
 
 
 def load(model_path: str, config_path: str, device="cuda",
@@ -114,3 +126,59 @@ def load(model_path: str, config_path: str, device="cuda",
         config.training_config = None
     model = model_from_params(config, restore_params(model_path))
     return model.to(dev), get_tokenizer(config.language_model)
+
+
+# ---------------------------------------------------------------------------
+# Forward + loss (the JAX package's ``clipcap_forward`` / ``clipcap_loss``)
+# ---------------------------------------------------------------------------
+
+# Positions per cross-entropy chunk: the [B, T, V] fp32 logits are never
+# held at once, and each chunk's logits are recomputed in the backward pass.
+CE_CHUNK = 16
+
+
+def clipcap_forward(model: ClipCapModel, tokens: Tensor, embeddings, mask: Tensor, *,
+                    dtype=torch.float32, remat: bool = False) -> Tensor:
+    """Prefix embeddings + token embeddings through GPT-2 → the final
+    hidden states ``[B, prefix+T, D]``, which the loss projects onto the
+    vocabulary in chunks (``lm_logits``).  ``tokens`` [B, T] must be valid
+    ids (pads replaced); ``mask`` [B, T] marks the real tokens."""
+    token_embeddings = gpt2_embed_tokens(model.language_model, tokens, dtype)
+    prefix = mapper_apply(model.transformer_mapper, embeddings, dtype=dtype)
+    inputs_embeds = torch.cat([prefix, token_embeddings], dim=1)
+    prefix_mask = torch.ones(prefix.shape[:2], dtype=torch.bool, device=prefix.device)
+    full_mask = torch.cat([prefix_mask, mask.bool()], dim=1)
+    out, _ = gpt2_apply(model.language_model, inputs_embeds=inputs_embeds,
+                        attention_mask=full_mask, dtype=dtype, remat=remat,
+                        return_logits=False)
+    return out
+
+
+def _chunk_nll(lm: GPT2, h: Tensor, t: Tensor, m: Tensor) -> Tensor:
+    logp = torch.log_softmax(lm_logits(lm, h).float(), dim=-1)
+    return -(logp.gather(-1, t[..., None])[..., 0] * m.float()).sum()
+
+
+def clipcap_loss(model: ClipCapModel, tokens: Tensor, embeddings, *,
+                 dtype=torch.float32, remat: bool = False) -> Tensor:
+    """Mean cross-entropy over the caption tokens (``tokens`` [B, T], -1
+    pads).  Token t is predicted from position ``prefix_length-1+t``; the
+    mask is the pads' positions, so token id 0 ("!") counts.  The sum over
+    valid tokens is divided by ``max(count, 1)``.
+
+    Gradients reach the parameters that require them: prefix-only
+    training (the JAX package's ``freeze_lm``) is GPT-2 with
+    ``requires_grad`` off (``train.state.create_train_state``).
+    """
+    P = model.prefix_length
+    mask = tokens >= 0
+    safe_tokens = torch.where(mask, tokens, 0)
+    hidden = clipcap_forward(model, safe_tokens, embeddings, mask, dtype=dtype, remat=remat)
+    T = tokens.shape[1]
+    pred_h = hidden[:, P - 1:P - 1 + T]
+    nll = torch.zeros((), dtype=torch.float32, device=pred_h.device)
+    for t0 in range(0, T, CE_CHUNK):
+        nll = nll + checkpoint(_chunk_nll, model.language_model, pred_h[:, t0:t0 + CE_CHUNK],
+                               safe_tokens[:, t0:t0 + CE_CHUNK], mask[:, t0:t0 + CE_CHUNK],
+                               use_reentrant=False)
+    return nll / mask.sum().float().clamp_min(1.0)

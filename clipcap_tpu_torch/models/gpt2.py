@@ -28,6 +28,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from clipcap_tpu_torch.ops.flash_decode import flash_decode
 from clipcap_tpu_torch.ops.layers import (ACTIVATIONS, Conv1D, LayerNorm, embed,
@@ -339,14 +340,17 @@ def gpt2_apply(model: GPT2, *, input_ids: Optional[Tensor] = None,
                kv_cache: Optional[List[Tensor]] = None, cache_index: int = 0,
                dtype=torch.float32, return_logits: bool = True,
                beam_size: Optional[int] = None, ancestry: Optional[Tensor] = None,
-               cache_base: int = 0):
+               cache_base: int = 0, remat: bool = False):
     """GPT-2 forward → ``(logits_or_hidden, kv_cache)``.
 
     ``kv_cache=None``: full-sequence causal attention (``attention_mask``
-    [B, S] marks valid tokens).  Cached: writes the new K/V at the host int
-    ``cache_index``; ``attention_mask`` is then over cache slots.  Beam
-    decode: ``beam_size`` K and ``ancestry`` [B, Tl] (``ancestry[b, t]`` =
-    the group row holding beam b's K/V for position ``cache_base + t``).
+    [B, S] marks valid tokens); with ``remat`` each block runs under
+    ``torch.utils.checkpoint`` and is recomputed in the backward pass, as
+    the JAX package's ``jax.checkpoint`` over the block.  Cached: writes
+    the new K/V at the host int ``cache_index``; ``attention_mask`` is then
+    over cache slots.  Beam decode: ``beam_size`` K and ``ancestry``
+    [B, Tl] (``ancestry[b, t]`` = the group row holding beam b's K/V for
+    position ``cache_base + t``).
     """
     cfg = model.config
     if inputs_embeds is None:
@@ -389,7 +393,10 @@ def gpt2_apply(model: GPT2, *, input_ids: Optional[Tensor] = None,
                               cache_base=cache_base)
     else:
         for layer in model.h:
-            x = _block(x, layer, bias, cfg)
+            if remat:
+                x = checkpoint(_block, x, layer, bias, cfg, use_reentrant=False)
+            else:
+                x = _block(x, layer, bias, cfg)
 
     x = model.ln_f(x)
     return (lm_logits(model, x) if return_logits else x), kv_cache

@@ -7,6 +7,8 @@ at the root of the checkout and is named after a hash of the sources and
 flags, so an edit to any source rebuilds it and a stale library is never
 loaded.  Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
+The launch goes to the CUDA runtime's current device, so each wrapper
+makes its tensors' device current around the call (``torch.cuda.device``).
 
 Nothing here runs at import time: the CPU-only test machines import every
 module of the port and never build.
@@ -31,12 +33,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # dtype codes of the C interface (csrc/common.cuh ``DType``).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     # q, kv, mask, out, R, H, K, U, Rm, u_valid, dtype, scale, stream
     "clipcap_flash_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # qkv, out, B, N, H, causal, dtype, scale, stream
     "clipcap_sdpa_packed": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # table, n, total, lr, b1, b2, eps, wd, bc1, bc2, stream
+    "clipcap_fused_adamw": [_P, _I, _L, _F, _F, _F, _F, _F, _F, _F, _P],
 }
 
 

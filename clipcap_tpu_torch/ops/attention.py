@@ -69,9 +69,10 @@ def sdpa_packed(qkv: Tensor, heads: int, *, scale: Optional[float] = None,
     s = HEAD_DIM ** -0.5 if scale is None else scale
     lib = _build.load_library()
     out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
-    code = lib.clipcap_sdpa_packed(
-        qkv.data_ptr(), out.data_ptr(), B, N, heads, int(causal),
-        _build.DTYPE_CODES[qkv.dtype], s, _build.stream_of(qkv))
+    with torch.cuda.device(qkv.device):   # the launch goes to the current device
+        code = lib.clipcap_sdpa_packed(
+            qkv.data_ptr(), out.data_ptr(), B, N, heads, int(causal),
+            _build.DTYPE_CODES[qkv.dtype], s, _build.stream_of(qkv))
     _build.check(code, "sdpa_packed")
     sdpa_packed.launches += 1
     return out

@@ -81,10 +81,11 @@ def flash_decode(q: Tensor, kv: Tensor, mask: Tensor,
         raise ValueError("flash_decode: q, kv and mask must share a device")
     lib = _build.load_library()
     out = torch.empty_like(q)
-    code = lib.clipcap_flash_decode(
-        q.data_ptr(), kv.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        R, H, K, U, Rm, u, _build.DTYPE_CODES[q.dtype], 1.0 / math.sqrt(Dh),
-        _build.stream_of(q))
+    with torch.cuda.device(q.device):     # the launch goes to the current device
+        code = lib.clipcap_flash_decode(
+            q.data_ptr(), kv.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            R, H, K, U, Rm, u, _build.DTYPE_CODES[q.dtype], 1.0 / math.sqrt(Dh),
+            _build.stream_of(q))
     _build.check(code, "flash_decode")
     flash_decode.launches += 1
     return out

@@ -73,8 +73,9 @@ def embed(table: Tensor, ids: Tensor, dtype: torch.dtype) -> Tensor:
 
 
 # Parameter holders.  Weights arrive from a parameter tree
-# (``clipcap_tpu_torch.convert``), so they start empty, and they are frozen:
-# the port serves and does not train.
+# (``clipcap_tpu_torch.convert``), so they start empty.  They start frozen;
+# training turns ``requires_grad`` on for what it trains
+# (``train.state.create_train_state``).
 
 
 def empty_param(*shape) -> nn.Parameter:
