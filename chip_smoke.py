@@ -5,7 +5,10 @@ Phases (any failure exits non-zero before the last line):
 1. environment: the card, torch and CUDA versions; build the CUDA kernels
    from ``clipcap_tpu_torch/csrc`` and time the build;
 2. each kernel against its plain PyTorch twin at the slice's shapes, bf16
-   and fp32 (fp32 within 1e-4 abs, bf16 within 2e-2 abs);
+   and fp32 (fp32 within 1e-4 abs, bf16 within 2e-2 abs); the int8 and
+   two-phase decode kernels at GPT-2 XL beam-5 shapes (R = 96, H = 25,
+   K = 5): the int8 folded cache, per-row bounds, the carry, and bf16/fp32
+   or int8 shared + live regions with a random per-sample converged length;
 3. the captioning slice at full width (CLIP ViT-B/32, the 8-layer
    transformer mapper, GPT-2 124M) with seeded weights, through the public
    entry points: save an ``.npz`` + YAML, ``load(..., device="cuda")``,
@@ -31,7 +34,26 @@ Phases (any failure exits non-zero before the last line):
    steps through the kernel against the same steps through the twin
    (parameters within 0.01·Σlr).  Information: ms per train step and
    samples/s of (a) and (b), kernel and twin ms, and a ``torch.profiler``
-   breakdown of one full-finetune step.
+   breakdown of one full-finetune step;
+7. GPT-2 XL beam 5 with an int8 KV cache and converged-prefix
+   consolidation: a seeded GPT-2 XL + 8-layer mapper on the card.  Gates
+   at fp32, R = 4, 67 new tokens: with the bf16/fp32 cache form at C = 8
+   the tokens through the kernels equal those through the twins, and equal
+   C = 0's; with the int8 cache (C = 0 and C = 8) every decode attention
+   call runs the kernel and its twin in lockstep on the same inputs, within
+   1e-4 (``xl_gates`` says why tokens are not the gate there); then the
+   main path with every count set to 0 just
+   before: ``--int8-kv-cache`` through the inference CLI's function on the
+   GPT-2 124M checkpoint of phase 3, ``generate_beam(int8_kv=True)`` and
+   ``beam_search_batched`` b96 with ``consolidate_every=8`` (bf16 and int8
+   caches) must launch both new kernels.  Information: captions/s and peak
+   device memory of (bf16|int8, C=0|8) at b96 bf16, a ``torch.profiler``
+   breakdown of the (int8, C=0) batch, each new kernel against its twin
+   and its bound.
+
+Every kernel's row carries its bound (bytes over 3.35 TB/s or operations
+over the data sheet's peak, whichever is larger) and the time of one
+PyTorch call that computes the same function, where there is one.
 
 Output: one line per finding, then the kernels as one JSON object, then the
 card's ``name, power.limit``, then ``{"ok": true, "device": {...}}``.
@@ -48,6 +70,7 @@ import json  # noqa: E402
 import math  # noqa: E402
 import platform  # noqa: E402
 import re  # noqa: E402
+import shutil  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
@@ -63,6 +86,7 @@ import torch  # noqa: E402
 ROOT = Path(__file__).resolve().parent
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 P, N_NEW, K = 10, 67, 5           # prefix length, new tokens, beam size
+XL_BATCH, XL_HEADS = 96, 25       # GPT-2 XL beam-5 batch (bench.py's), heads
 TRAIN_ROWS, TRAIN_BATCH, EMB = 650, 64, 512    # 11 steps, the last one padded
 MODEL_ARGS = ["--language-model", "gpt2", "--prefix-length", str(P), "--projection-length",
               str(P), "--transformer-layers", "8", "--transformer-attention-heads", "8"]
@@ -125,7 +149,8 @@ def check_kernels(dev):
     from clipcap_tpu_torch.ops.flash_decode import flash_decode, flash_decode_ref
 
     g = torch.Generator(device=dev).manual_seed(0)
-    err = {"flash_decode": 0.0, "sdpa_packed": 0.0}
+    err = {"flash_decode": 0.0, "sdpa_packed": 0.0, "flash_decode_int8": 0.0,
+           "flash_decode_two_phase": 0.0}
 
     def compare(name, label, dtype, got, want):
         d = (got.float() - want.float()).abs().max().item()
@@ -160,12 +185,137 @@ def check_kernels(dev):
             qkv = torch.randn(B, N, 3 * D, generator=g, device=dev).to(dtype)
             compare("sdpa_packed", f"{label} B={B} N={N} D={D} causal={causal}", dtype,
                     sdpa_packed(qkv, H, causal=causal), sdpa_packed_ref(qkv, H, causal=causal))
+        check_kv_kernels(dev, g, dtype, compare)
     torch.cuda.synchronize()
     return err
 
 
+def int8_cache(g, R, H, U, dev):
+    """Seeded int8 K|V rows [R, H, U, 128] and their fp32 (sk, sv) scales;
+    values stay under 1.9 in magnitude, so a bf16 output's last place is at
+    most 2^-7 and the 2e-2 tolerance holds a rounding or two."""
+    rows = torch.randint(-127, 128, (R, H, U, 128), generator=g, device=dev).to(torch.int8)
+    sk = torch.rand(R, H, U, generator=g, device=dev) * 0.01 + 0.005
+    sv = torch.rand(R, H, U, generator=g, device=dev) * 0.01 + 0.005
+    return rows, (sk, sv)
+
+
+def region(g, R, H, U, dtype, int8: bool, dev):
+    """One decode cache region: (rows, scales or None)."""
+    if int8:
+        return int8_cache(g, R, H, U, dev)
+    return torch.randn(R, H, U, 128, generator=g, device=dev).to(dtype), None
+
+
+def two_phase_inputs(g, dtype, step: int, sh_int8: bool, lv_int8: bool, dev, R=XL_BATCH):
+    """GPT-2 XL beam-5 consolidated step ``step``: shared (80 / 128 slots)
+    and live (336 / 384) regions, a random per-sample converged length c
+    in [P, P + step], the masks gpt2_apply builds.  → (args, kwargs) of
+    ``flash_decode_two_phase``."""
+    from clipcap_tpu_torch.models.gpt2 import beam_mask, shared_mask
+
+    H = XL_HEADS
+    Us, Ul = (128 if sh_int8 else 80), (384 if lv_int8 else 336)
+    q = torch.randn(R, H, K, 64, generator=g, device=dev).to(dtype)
+    sh, sh_s = region(g, R, H, Us, dtype, sh_int8, dev)
+    lv, lv_s = region(g, R, H, Ul, dtype, lv_int8, dev)
+    c = P + torch.randint(0, step + 1, (R,), generator=g, device=dev).to(torch.int32)
+    anc = torch.randint(0, K, (R * K, N_NEW), generator=g, device=dev)
+    lv_mask = beam_mask(anc, K, Ul, offset=P + step, cache_base=P, shared_len=c)
+    args = (q, sh, shared_mask(c, K, Us, dev), lv, lv_mask, c, ((c - P) * K).to(torch.int32),
+            (step + 1) * K)
+    return args, dict(shared_scales=sh_s, live_scales=lv_s)
+
+
+def check_kv_kernels(dev, g, dtype, compare):
+    """Phase 2, the int8 and two-phase decode kernels at GPT-2 XL beam-5
+    shapes (R = 96, H = 25, K = 5): the int8 folded cache (U = 384) at
+    early, middle and late steps, per-row bounds and the carry; the
+    two-phase kernel over bf16/fp32 or int8 shared + live regions with a
+    random per-sample converged length; the int8 sampling cache (K = 1)."""
+    from clipcap_tpu_torch.models.gpt2 import beam_mask, causal_bias
+    from clipcap_tpu_torch.ops.flash_decode import (flash_decode, flash_decode_ref,
+                                                    flash_decode_two_phase,
+                                                    flash_decode_two_phase_ref)
+
+    R, H, U = XL_BATCH, XL_HEADS, 384
+    q = torch.randn(R, H, K, 64, generator=g, device=dev).to(dtype)
+    rows, scales = int8_cache(g, R, H, U, dev)
+    anc = torch.randint(0, K, (R * K, N_NEW), generator=g, device=dev)
+    for step in (0, 1, 40, N_NEW - 1):
+        mask = beam_mask(anc, K, U, offset=P + step, cache_base=P)
+        u = P + (step + 1) * K
+        compare("flash_decode_int8", f"beam R={R} H={H} K={K} U={U} u_valid={u}", dtype,
+                flash_decode(q, rows, mask, u, scales=scales),
+                flash_decode_ref(q, rows, mask, u, scales=scales))
+    lo = torch.randint(0, 150, (R,), generator=g, device=dev).to(torch.int32)
+    hi = (lo + torch.randint(1, 235, (R,), generator=g, device=dev)).to(torch.int32)
+    compare("flash_decode_int8", f"per-row [lo, hi) R={R}", dtype,
+            flash_decode(q, rows, mask, hi, scales=scales, u_lo=lo),
+            flash_decode_ref(q, rows, mask, hi, scales=scales, u_lo=lo))
+    part = flash_decode(q, rows, mask, 100, scales=scales, return_carry=True)
+    part_ref = flash_decode_ref(q, rows, mask, 100, scales=scales, return_carry=True)
+    for name, a, b in zip(("m", "l"), part, part_ref):
+        d = ((a - b).abs() / b.abs().clamp_min(1.0)).max().item()
+        print(f"kernel flash_decode_int8 carry {name} {str(dtype)[6:]}: max rel|d| {d:.3g}")
+        if not d <= 1e-4:
+            raise AssertionError(f"flash_decode_int8 carry {name}: {d}")
+    compare("flash_decode_int8", "carry acc / l over [0, 100)", dtype,
+            part[2] / part[1][..., None], part_ref[2] / part_ref[1][..., None])
+    compare("flash_decode_int8", "carry [0, 100) resumed over [100, 384)", dtype,
+            flash_decode(q, rows, mask, U, scales=scales, u_lo=100, carry=part),
+            flash_decode_ref(q, rows, mask, U, scales=scales))
+    # Sampling (K = 1) over the int8 cache of the nucleus demo (128 slots).
+    q1 = torch.randn(5, 12, 1, 64, generator=g, device=dev).to(dtype)
+    rows1, scales1 = int8_cache(g, 5, 12, 128, dev)
+    for pos in (P, P + N_NEW - 1):
+        mask = causal_bias(1, 128, pos, device=dev)[:, 0]
+        compare("flash_decode_int8", f"sample R=5 K=1 u_valid={pos + 1}", dtype,
+                flash_decode(q1, rows1, mask, pos + 1, scales=scales1),
+                flash_decode_ref(q1, rows1, mask, pos + 1, scales=scales1))
+    for sh_int8, lv_int8 in ((False, False), (True, True), (True, False), (False, True)):
+        for step in (0, 40, N_NEW - 1):
+            args, kw = two_phase_inputs(g, dtype, step, sh_int8, lv_int8, dev)
+            compare("flash_decode_two_phase",
+                    f"R={R} H={H} K={K} shared int8={sh_int8} live int8={lv_int8} "
+                    f"U={args[1].shape[2]}+{args[3].shape[2]} step={step}", dtype,
+                    flash_decode_two_phase(*args, **kw), flash_decode_two_phase_ref(*args, **kw))
+
+
+# The H100 SXM's published peaks (NVIDIA data sheet; dense, at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}   # fp32: CUDA cores
+
+
+def bound(nbytes: float, ops: float, dtype) -> dict:
+    """The least time the card could take for a call: its bytes (each input
+    read once, each output written once) over the memory rate, or its
+    operations over the peak rate of ``dtype``, whichever is larger."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def decode_bound(q, regions, dtype) -> dict:
+    """Bound of one decode-attention call: ``regions`` lists (slots read per
+    head summed over rows, bytes per slot and head, mask columns read summed
+    over rows); q is read and the output written once; 4·Dh·K operations
+    per slot and head (q·k and w·v)."""
+    R, H, Kq, Dh = q.shape
+    nbytes = 2 * q.numel() * q.element_size()
+    ops = 0
+    for slots, slot_bytes, mask_cols in regions:
+        nbytes += H * slots * slot_bytes + Kq * mask_cols * 4
+        ops += H * slots * 4 * Dh * Kq
+    return bound(nbytes, ops, dtype)
+
+
 def time_kernels(dev, tag: str):
-    """Phase 4a: kernel vs twin device time at the slice's bf16 shapes."""
+    """Phase 4a: kernel vs twin vs one PyTorch call, device time at the
+    slice's bf16 shapes, and each kernel's bound."""
+    import torch.nn.functional as F
+
     from clipcap_tpu_torch.models.gpt2 import beam_mask
     from clipcap_tpu_torch.ops.attention import sdpa_packed, sdpa_packed_ref
     from clipcap_tpu_torch.ops.flash_decode import flash_decode, flash_decode_ref
@@ -179,18 +329,66 @@ def time_kernels(dev, tag: str):
     anc = torch.randint(0, K, (R * K, N_NEW), generator=g, device=dev)
     mask = beam_mask(anc, K, U, offset=P + step, cache_base=P)
     u = P + (step + 1) * K
-    out["flash_decode"] = (cuda_ms(lambda: flash_decode(q, kv, mask, u)),
-                           cuda_ms(lambda: flash_decode_ref(q, kv, mask, u)))
-    print(f"time [{tag}] flash_decode beam R={R} H={H} K={K} u_valid={u} bf16: kernel "
-          f"{out['flash_decode'][0]:.4f} ms, twin {out['flash_decode'][1]:.4f} ms")
+    lib_mask = mask[:, None, :, :u].to(bf)
+    out["flash_decode"] = {
+        "ms": cuda_ms(lambda: flash_decode(q, kv, mask, u)),
+        "plain_ms": cuda_ms(lambda: flash_decode_ref(q, kv, mask, u)),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, kv[:, :, :u, :64], kv[:, :, :u, 64:], attn_mask=lib_mask)),
+        **decode_bound(q, [(R * u, 256, R * u)], bf)}
+    print(f"time [{tag}] flash_decode beam R={R} H={H} K={K} u_valid={u} bf16: "
+          f"{out['flash_decode']}")
     for B, N, D, H, causal, label in ((512, 50, 768, 12, False, "ViT-B/32 b512"),
                                       (5, 77, 512, 8, True, "text tower b5")):
         qkv = torch.randn(B, N, 3 * D, generator=g, device=dev).to(bf)
-        t = (cuda_ms(lambda: sdpa_packed(qkv, H, causal=causal)),
-             cuda_ms(lambda: sdpa_packed_ref(qkv, H, causal=causal)))
+        heads = qkv.view(B, N, 3, H, D // H).permute(2, 0, 3, 1, 4)
+        t = {"ms": cuda_ms(lambda: sdpa_packed(qkv, H, causal=causal)),
+             "plain_ms": cuda_ms(lambda: sdpa_packed_ref(qkv, H, causal=causal)),
+             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                 *heads, is_causal=causal)),
+             **bound(4 * B * N * D * 2, 4 * B * N * N * D, bf)}
         out.setdefault("sdpa_packed", t)
-        print(f"time [{tag}] sdpa_packed {label} bf16: kernel {t[0]:.4f} ms, "
-              f"twin {t[1]:.4f} ms")
+        print(f"time [{tag}] sdpa_packed {label} bf16: {t}")
+    return out
+
+
+def time_kv_kernels(dev, tag: str):
+    """Phase 7d: the int8 and two-phase decode kernels at GPT-2 XL beam-5
+    step 40 (b96, bf16 q): kernel vs twin device time and each bound.  No
+    single PyTorch call computes either function."""
+    from clipcap_tpu_torch.models.gpt2 import beam_mask
+    from clipcap_tpu_torch.ops.flash_decode import (flash_decode, flash_decode_ref,
+                                                    flash_decode_two_phase,
+                                                    flash_decode_two_phase_ref)
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    bf, step = torch.bfloat16, 40
+    R, H, U = XL_BATCH, XL_HEADS, 384
+    q = torch.randn(R, H, K, 64, generator=g, device=dev).to(bf)
+    rows, scales = int8_cache(g, R, H, U, dev)
+    anc = torch.randint(0, K, (R * K, N_NEW), generator=g, device=dev)
+    mask = beam_mask(anc, K, U, offset=P + step, cache_base=P)
+    u = P + (step + 1) * K
+    out = {"flash_decode_int8": {
+        "ms": cuda_ms(lambda: flash_decode(q, rows, mask, u, scales=scales)),
+        "plain_ms": cuda_ms(lambda: flash_decode_ref(q, rows, mask, u, scales=scales)),
+        "library_ms": None, **decode_bound(q, [(R * u, 136, R * u)], bf)}}
+    print(f"time [{tag}] flash_decode_int8 beam R={R} H={H} K={K} u_valid={u} bf16 q: "
+          f"{out['flash_decode_int8']}")
+    for int8 in (False, True):
+        args, kw = two_phase_inputs(g, bf, step, int8, int8, dev)
+        c, lv_lo, lv_hi = args[5], args[6], args[7]
+        shared_slots = int((c.sum()).item())
+        live_slots = int((lv_hi - lv_lo).sum().item())
+        slot_bytes = 136 if int8 else 256
+        t = {"ms": cuda_ms(lambda: flash_decode_two_phase(*args, **kw)),
+             "plain_ms": cuda_ms(lambda: flash_decode_two_phase_ref(*args, **kw)),
+             "library_ms": None,
+             **decode_bound(q, [(shared_slots, slot_bytes, shared_slots),
+                                (live_slots, slot_bytes, live_slots)], bf)}
+        print(f"time [{tag}] flash_decode_two_phase R={R} H={H} K={K} step {step} int8={int8} "
+              f"({shared_slots} shared + {live_slots} live slots over the rows): {t}")
+        out.setdefault("flash_decode_two_phase", t)
     return out
 
 
@@ -382,8 +580,8 @@ def write_train_dataset(root: Path, rows: int = TRAIN_ROWS, dim: int = EMB, seed
     """Phase 6a: seeded fp32 embeddings and captions of 8-80 bytes (8-80
     tokens under the byte tokenizer used offline) in two partitions, with
     the preprocess stage's JAX-free writer."""
-    from clipcap_tpu.preprocess.writer import PartitionWriter, write_encoder_config
-    from clipcap_tpu.utils.tokenizer import get_tokenizer
+    from clipcap_tpu_torch.preprocess.writer import PartitionWriter, write_encoder_config
+    from clipcap_tpu_torch.utils.tokenizer import get_tokenizer
 
     rng = np.random.default_rng(seed)
     words = ("a man woman dog cat red blue small large sits stands near on the of with "
@@ -485,11 +683,19 @@ def check_adamw(model, dev, tag: str):
           f"max|d| {err:.3g} (tol 0: bit for bit)")
     if err != 0:
         raise AssertionError(f"fused_adamw differs from its twin by {err}")
-    ms = (cuda_ms(lambda: fused_adamw(params, grads, mu, nu, s)),
-          cuda_ms(lambda: fused_adamw_ref(*twin, s)))
-    print(f"time [{tag}] fused_adamw {len(params)} tensors, {n} elements: kernel {ms[0]:.4f} "
-          f"ms ({28 * n / ms[0] / 1e6:.1f} GB/s at 28 bytes per element), twin {ms[1]:.4f} ms")
-    return err, ms
+    # The library yardstick: PyTorch's multi-tensor AdamW (its own op order:
+    # bias corrections on lr and the denominator, decay before the update).
+    steps = [torch.tensor(3.0, device=dev) for _ in params]
+    times = {"ms": cuda_ms(lambda: fused_adamw(params, grads, mu, nu, s)),
+             "plain_ms": cuda_ms(lambda: fused_adamw_ref(*twin, s)),
+             "library_ms": cuda_ms(lambda: torch._fused_adamw_(
+                 twin[0], twin[1], twin[2], twin[3], [], steps, lr=1e-4, beta1=0.9,
+                 beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False)),
+             # 28 bytes per element (p, g, m, v read; p, m, v written), ~16 fp32 ops
+             **bound(28 * n, 16 * n, torch.float32)}
+    print(f"time [{tag}] fused_adamw {len(params)} tensors, {n} elements: {times} "
+          f"({28 * n / times['ms'] / 1e6:.1f} GB/s at 28 bytes per element)")
+    return err, times
 
 
 def three_steps(base, dev, batches):
@@ -586,7 +792,7 @@ def run_training(dev, workdir: Path, tag: str):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         base = init_clipcap(train_config())
-    err, ms = check_adamw(base, dev, tag)
+    err, times = check_adamw(base, dev, tag)
     loader, _ = get_dataloader(str(root), language_model="gpt2", batch_size=TRAIN_BATCH)
     batches = [(torch.from_numpy(t).to(dev), torch.from_numpy(e).to(dev)) for t, e in loader]
     three_steps(base, dev, batches)
@@ -596,7 +802,263 @@ def run_training(dev, workdir: Path, tag: str):
     return {"name": "fused_adamw", "route": "cuda",
             "source": "clipcap_tpu_torch/csrc/fused_adamw.cu",
             "replaces": "clipcap_tpu/ops/fused_adamw.py:125",
-            "launches": launches, "max_abs_err": err, "ms": ms[0], "plain_ms": ms[1]}
+            "launches": launches, "max_abs_err": err, **times}
+
+
+def seeded_xl(dev):
+    """Phase 7a: GPT-2 XL (1600 wide, 48 layers, 25 heads) + the 8-layer
+    transformer mapper for 768-d embeddings, fp32 on the card, seeded there
+    (normal(0, 0.02) matrices, zero biases, unit norm scales): numpy draws
+    of 1.8B parameters would take a minute on the host."""
+    from clipcap_tpu_torch.config import Config, EncoderConfig
+    from clipcap_tpu_torch.models.clipcap import ClipCapModel, build_mapper_config
+    from clipcap_tpu_torch.models.gpt2 import GPT2, get_gpt2_config
+    from clipcap_tpu_torch.models.mapper import TransformerMapper
+
+    config = Config(language_model="gpt2-xl", prefix_length=P, projection_length=P,
+                    transformer_layers=8, transformer_attention_heads=8,
+                    encoder_config=EncoderConfig(encoder_model_variant="ViT-L/14",
+                                                 encoder_embedding_size=768))
+    lm_config = get_gpt2_config("gpt2-xl")
+    model = ClipCapModel(config, GPT2(lm_config),
+                         TransformerMapper(build_mapper_config(config, lm_config.n_embd))).to(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            elif p.dim() == 1:
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, 0.02, generator=g)
+    return model
+
+
+def agreement(a, b) -> str:
+    """How far two beam results' tokens agree."""
+    same = (a.tokens == b.tokens).all(dim=-1)
+    if bool(same.all()):
+        return "tokens equal"
+    diff = (a.tokens != b.tokens).flatten(0, 1).float().argmax(dim=-1)
+    return (f"{int(same.sum())} of {same.numel()} beams equal, first difference at step "
+            f"{int(diff[~same.flatten()].min())}")
+
+
+def xl_gates(model, dev):
+    """Phase 7b: fp32 GPT-2 XL beam 5, R = 4, 67 new tokens.
+
+    bf16/fp32 cache: the arithmetic is continuous, so the tokens through
+    the kernels equal those through the twins (the decode attention patched
+    to them in this script alone) at C = 8, and C = 8 equals C = 0.  int8
+    cache: rounding to int8 is not continuous; a difference in fp32
+    summation order (~1e-7) flips the odd quantised value, which moves the
+    hidden state by ~1e-4, and two runs drift apart.  So the int8 runs
+    (C = 0 and C = 8) are checked in lockstep: every decode attention call
+    launches the kernel and its twin on the same inputs, the inputs of the
+    main path itself, and the two must agree within 1e-4.  Their token
+    agreement with full twin runs, C = 8 against C = 0, and a control (the
+    same run from a prefix moved by 1e-6 relative) are printed."""
+    from clipcap_tpu_torch.inference.beam import BeamParams, beam_search_batched
+    from clipcap_tpu_torch.models import gpt2
+    from clipcap_tpu_torch.ops.flash_decode import (flash_decode, flash_decode_ref,
+                                                    flash_decode_two_phase,
+                                                    flash_decode_two_phase_ref)
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    prefix = model.transformer_mapper(torch.randn(4, 768, generator=g, device=dev))
+    moved = prefix * (1 + 1e-6)
+
+    def lockstep(kernel, twin, diffs):
+        def call(*args, **kw):
+            got = kernel(*args, **kw)
+            diffs.append((got - twin(*args, **kw)).abs().max())
+            return got
+        return call
+
+    def run(int8: bool, C: int, mode: str = "kernel", x=prefix):
+        bp = BeamParams(beam_size=K, max_new_tokens=N_NEW, stop_token=50256, int8_kv=int8,
+                        consolidate_every=C)
+        n0 = flash_decode.launches + flash_decode_two_phase.launches
+        diffs = []
+        with contextlib.ExitStack() as patches:
+            for name, kernel, twin in (("flash_decode", flash_decode, flash_decode_ref),
+                                       ("flash_decode_two_phase", flash_decode_two_phase,
+                                        flash_decode_two_phase_ref)):
+                if mode != "kernel":
+                    patches.enter_context(mock.patch.object(
+                        gpt2, name, twin if mode == "twin" else lockstep(kernel, twin, diffs)))
+            res = beam_search_batched(model.language_model, x, bp, dtype=torch.float32)
+        n = flash_decode.launches + flash_decode_two_phase.launches - n0
+        if (n == 0) != (mode == "twin"):
+            raise AssertionError(f"xl int8={int8} C={C} {mode}: {n} kernel launches")
+        if mode == "lockstep":
+            d = torch.stack(diffs).max().item()
+            print(f"xl: fp32 R=4 int8={int8} C={C} lockstep: {len(diffs)} decode attention "
+                  f"calls, kernel vs twin max|d| {d:.3g} (tol 1e-4)")
+            if not d <= 1e-4:
+                raise AssertionError(f"xl int8={int8} C={C}: kernel and twin differ by {d}")
+        return res
+
+    bf_c0, bf_c8 = run(False, 0), run(False, 8)
+    for label, a, b in (("C=8 kernels vs twins", bf_c8, run(False, 8, "twin")),
+                        ("C=8 vs C=0", bf_c8, bf_c0)):
+        same = torch.equal(a.tokens, b.tokens)
+        print(f"xl: fp32 R=4 bf16-form cache {label}: {agreement(a, b)}; max|d score| "
+              f"{(a.scores - b.scores).abs().max().item():.3g}")
+        if not same:
+            raise AssertionError(f"xl fp32 cache {label}: tokens differ")
+    i8_c0, i8_c8 = run(True, 0, "lockstep"), run(True, 8, "lockstep")
+    for label, a, b in (("C=0 kernels vs twins", i8_c0, run(True, 0, "twin")),
+                        ("C=8 kernels vs twins", i8_c8, run(True, 8, "twin")),
+                        ("C=8 vs C=0", i8_c8, i8_c0),
+                        ("C=0 vs itself from a prefix moved by 1e-6", i8_c0,
+                         run(True, 0, x=moved))):
+        print(f"xl: fp32 R=4 int8 cache {label} (information): {agreement(a, b)}")
+    print(f"xl: fp32 R=4 bf16-form cache C=0 vs itself from a prefix moved by 1e-6 "
+          f"(information): {agreement(bf_c0, run(False, 0, x=moved))}")
+
+
+def int8_cli(slice_dir: Path, dev):
+    """Phase 7c: ``python -m clipcap_tpu_torch.inference --int8-kv-cache``'s
+    function on the GPT-2 124M checkpoint of phase 3."""
+    from argparse import ArgumentParser
+
+    from clipcap_tpu_torch.inference.args import add_inference_args
+    from clipcap_tpu_torch.inference.demo import inference_demo
+
+    args = add_inference_args(ArgumentParser()).parse_args(
+        ["--model-path", str(slice_dir / "model.npz"), "--config-path",
+         str(slice_dir / "config.yaml"), "--sample-path", str(slice_dir / "image.png"),
+         "--device", str(dev), "--int8-kv-cache", "--number-to-generate", "5"])
+    log = io.StringIO()
+    with warnings.catch_warnings(), contextlib.redirect_stdout(log):
+        warnings.simplefilter("ignore")               # seeded CLIP: no checkpoint offline
+        rc = inference_demo(args)
+    lines = log.getvalue().splitlines()
+    if rc != 0 or sum(line.startswith("sim ") for line in lines) != 5 or "best" not in lines[-1]:
+        raise AssertionError(f"int8 CLI: exit {rc}, output {lines}")
+    print(f"xl: CLI --int8-kv-cache on the GPT-2 124M checkpoint: 5 captions; {lines[-1]!r}")
+
+
+def run_xl(dev, slice_dir: Path, tag: str):
+    """Phase 7: GPT-2 XL beam 5 with an int8 KV cache and converged-prefix
+    consolidation.  Returns the rows of the two new kernels."""
+    from clipcap_tpu_torch import generate_beam
+    from clipcap_tpu_torch.inference.beam import BeamParams, beam_search_batched
+    from clipcap_tpu_torch.ops.flash_decode import flash_decode, flash_decode_two_phase
+    from clipcap_tpu_torch.utils.tokenizer import get_tokenizer
+
+    t_phase = time.perf_counter()
+    model = seeded_xl(dev)
+    sync(dev)
+    print(f"xl: seeded GPT-2 XL + 8-layer mapper on the card in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    xl_gates(model, dev)
+    model.to(torch.bfloat16)
+    lm, bf = model.language_model, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(5)
+    prefix = model.transformer_mapper(torch.randn(XL_BATCH, 768, generator=g, device=dev),
+                                      dtype=bf)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")               # byte-level tokenizer offline
+        tokenizer = get_tokenizer("gpt2")
+
+    # The main path: every count set to 0 just before, read just after.
+    flash_decode.launches = flash_decode.int8_launches = flash_decode_two_phase.launches = 0
+    t0 = time.perf_counter()
+    int8_cli(slice_dir, dev)
+    beams = generate_beam(model, tokenizer, prefix[:1], number_to_generate=5, beam_size=K,
+                          int8_kv=True, dtype=bf)
+    results = [beam_search_batched(lm, prefix, BeamParams(beam_size=K, max_new_tokens=N_NEW,
+                                                          stop_token=tokenizer.eos_token_id,
+                                                          int8_kv=int8, consolidate_every=8),
+                                   dtype=bf) for int8 in (False, True)]
+    sync(dev)
+    launches = {"flash_decode_int8": flash_decode.int8_launches,
+                "flash_decode_two_phase": flash_decode_two_phase.launches}
+    print(f"xl: CLI + generate_beam(int8_kv=True) + beam_search_batched b{XL_BATCH} C=8 "
+          f"(bf16 and int8 caches) in {time.perf_counter() - t0:.1f} s; launches {launches}")
+    if len(beams) != 5 or not all(isinstance(b, str) for b in beams):
+        raise AssertionError(f"xl generate_beam returned {beams}")
+    for res in results:
+        if res.tokens.shape != (XL_BATCH, K, N_NEW) or not torch.isfinite(res.scores).all():
+            raise AssertionError(f"xl beam search: tokens {tuple(res.tokens.shape)}")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"the GPT-2 XL phase never launched {name}")
+    print(f"xl: best int8 beam {beams[0]!r}")
+
+    # Timings (information): b96 beam 5, bf16, two distinct batches a trial.
+    inputs = [prefix] + [model.transformer_mapper(
+        torch.randn(XL_BATCH, 768, generator=g, device=dev), dtype=bf)]
+    medians = {}
+    for int8, C in ((False, 0), (True, 0), (False, 8), (True, 8)):
+        bp = BeamParams(beam_size=K, max_new_tokens=N_NEW, stop_token=50256, int8_kv=int8,
+                        consolidate_every=C)
+
+        def work(x, bp=bp):
+            return beam_search_batched(lm, x, bp, dtype=bf)
+
+        torch.cuda.reset_peak_memory_stats()
+        cps = rate(work, inputs, XL_BATCH, trials=2)
+        medians[int8, C] = statistics.median(cps)
+        print(f"time [{tag}] beam-5 GPT-2 XL b{XL_BATCH} bf16 int8_kv={int8} "
+              f"consolidate_every={C}: captions/s per trial {cps}; median "
+              f"{medians[int8, C]:.2f}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if (int8, C) == (True, 0):
+            profile(work, inputs[0], XL_BATCH * 1e3 / medians[int8, C],
+                    f"beam-5 GPT-2 XL b{XL_BATCH} int8 C=0", tag)
+    times = time_kv_kernels(dev, tag)
+    print(f"xl: phase took {time.perf_counter() - t_phase:.1f} s")
+    return {name: {"launches": launches[name], **times[name]} for name in launches}
+
+
+def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict) -> list:
+    """Phases 3-7 in ``workdir``; returns the kernels' rows."""
+    slice_dir, train_dir = workdir / "slice", workdir / "train"
+    slice_dir.mkdir()
+    train_dir.mkdir()
+    model, encoder, launches = run_slice(dev, slice_dir)
+    times = time_kernels(dev, name_limit)
+    beam, beam_inputs = beam_workload(model, dev)
+    beam_cps = rate(beam, beam_inputs, 128)
+    print(f"time [{name_limit}] beam-5 GPT-2 b128 bf16 ({N_NEW} new tokens): captions/s "
+          f"per trial {beam_cps}")
+    vit, vit_inputs = vit_workload(encoder, dev)
+    embeds = rate(vit, vit_inputs, 512)
+    print(f"time [{name_limit}] ViT-B/32 b512 bf16 uint8: embeds/s per trial {embeds}")
+    print(f"host: {dispatch_us(dev)} us of host time per eager op (one-element add)")
+    print(f"summary [{name_limit}; {host_line}]: beam-5 GPT-2 b128 bf16 median "
+          f"{statistics.median(beam_cps):.1f} captions/s of {len(beam_cps)} trials; "
+          f"ViT-B/32 b512 bf16 median {statistics.median(embeds):.1f} embeds/s of "
+          f"{len(embeds)} trials; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile(beam, beam_inputs[0], 128e3 / statistics.median(beam_cps), "beam-5 GPT-2 b128",
+            name_limit)
+    profile(vit, vit_inputs[0], 512e3 / statistics.median(embeds), "ViT-B/32 b512", name_limit)
+    del beam, beam_inputs, vit, vit_inputs, model, encoder
+    adamw_row = run_training(dev, train_dir, name_limit)
+    torch.cuda.empty_cache()
+    xl_rows = run_xl(dev, slice_dir, name_limit)
+
+    def row(name, source, replaces, **numbers):
+        return {"name": name, "route": "cuda", "source": f"clipcap_tpu_torch/csrc/{source}",
+                "replaces": replaces, **numbers}
+
+    return [
+        row("flash_decode", "flash_decode.cu", "clipcap_tpu/ops/flash_decode.py:407",
+            launches=launches["flash_decode"], max_abs_err=errors["flash_decode"],
+            **times["flash_decode"]),
+        row("sdpa_packed", "sdpa_packed.cu", "clipcap_tpu/ops/attention.py:244",
+            launches=launches["sdpa_packed"], max_abs_err=errors["sdpa_packed"],
+            **times["sdpa_packed"]),
+        adamw_row,
+        row("flash_decode_int8", "flash_decode.cu", "clipcap_tpu/ops/flash_decode.py:407",
+            max_abs_err=errors["flash_decode_int8"], **xl_rows["flash_decode_int8"]),
+        row("flash_decode_two_phase", "flash_decode.cu", "clipcap_tpu/ops/flash_decode.py:784",
+            max_abs_err=errors["flash_decode_two_phase"], **xl_rows["flash_decode_two_phase"]),
+    ]
 
 
 def main() -> int:
@@ -622,44 +1084,14 @@ def main() -> int:
     errors = check_kernels(dev)
     build_root = ROOT / "build" / "clipcap_tpu_torch"
     build_root.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build_root) as tmp:
-        model, encoder, launches = run_slice(dev, Path(tmp))
-    times = time_kernels(dev, name_limit)
-    beam, beam_inputs = beam_workload(model, dev)
-    beam_cps = rate(beam, beam_inputs, 128)
-    print(f"time [{name_limit}] beam-5 GPT-2 b128 bf16 ({N_NEW} new tokens): captions/s "
-          f"per trial {beam_cps}")
-    vit, vit_inputs = vit_workload(encoder, dev)
-    embeds = rate(vit, vit_inputs, 512)
-    print(f"time [{name_limit}] ViT-B/32 b512 bf16 uint8: embeds/s per trial {embeds}")
-    print(f"host: {dispatch_us(dev)} us of host time per eager op (one-element add)")
-    print(f"summary [{name_limit}; {host_line}]: beam-5 GPT-2 b128 bf16 median "
-          f"{statistics.median(beam_cps):.1f} captions/s of {len(beam_cps)} trials; "
-          f"ViT-B/32 b512 bf16 median {statistics.median(embeds):.1f} embeds/s of "
-          f"{len(embeds)} trials; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile(beam, beam_inputs[0], 128e3 / statistics.median(beam_cps), "beam-5 GPT-2 b128",
-            name_limit)
-    profile(vit, vit_inputs[0], 512e3 / statistics.median(embeds), "ViT-B/32 b512", name_limit)
-    del beam, beam_inputs, vit, vit_inputs, model, encoder
-    with tempfile.TemporaryDirectory(dir=build_root) as tmp:
-        adamw_row = run_training(dev, Path(tmp), name_limit)
-    if "jax" in sys.modules:
-        raise AssertionError("the port loaded jax")
+    workdir = Path(tempfile.mkdtemp(dir=build_root))
+    try:
+        kernels = run_phases(dev, workdir, name_limit, host_line, errors)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    if "jax" in sys.modules or any(n.split(".")[0] == "clipcap_tpu" for n in sys.modules):
+        raise AssertionError("the port loaded jax or the JAX package")
 
-    kernels = [
-        {"name": "flash_decode", "route": "cuda",
-         "source": "clipcap_tpu_torch/csrc/flash_decode.cu",
-         "replaces": "clipcap_tpu/ops/flash_decode.py:407",
-         "launches": launches["flash_decode"], "max_abs_err": errors["flash_decode"],
-         "ms": times["flash_decode"][0], "plain_ms": times["flash_decode"][1]},
-        {"name": "sdpa_packed", "route": "cuda",
-         "source": "clipcap_tpu_torch/csrc/sdpa_packed.cu",
-         "replaces": "clipcap_tpu/ops/attention.py:244",
-         "launches": launches["sdpa_packed"], "max_abs_err": errors["sdpa_packed"],
-         "ms": times["sdpa_packed"][0], "plain_ms": times["sdpa_packed"][1]},
-        adamw_row,
-    ]
     print(json.dumps({"kernels": kernels}))
     print(name_limit)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,9 +11,11 @@ JAX package used Pallas:
     prefix = model.transformer_mapper(embedding)
     captions = clipcap.generate_beam(model, tokenizer, prefix)
 
-The package imports ``torch`` and never ``jax``; it reuses only the JAX-free
-modules of ``clipcap_tpu`` (config and tokenizers).  Imports are lazy so
-``import clipcap_tpu_torch`` stays cheap and builds no kernel.
+The package imports ``torch`` and never ``jax``, and nothing of
+``clipcap_tpu``: it keeps its own copies of the JAX-free modules it needs
+(config, tokenizers, CLI argument types, the dataset reader and writer).
+Imports are lazy so ``import clipcap_tpu_torch`` stays cheap and builds no
+kernel.
 """
 from __future__ import annotations
 

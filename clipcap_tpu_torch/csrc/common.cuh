@@ -1,6 +1,7 @@
 // Shared helpers of the port's hand-written Hopper kernels (sm_90a).
 //
-// Every kernel takes bf16 or fp32 tensors, computes in fp32 and exposes a
+// Every kernel takes bf16 or fp32 tensors (the decode cache also int8
+// rows), computes in fp32 and exposes a
 // plain C entry point that launches on the caller's stream and returns
 // cudaGetLastError(), so the ctypes binding in ops/_build.py can raise on
 // a refused launch.
@@ -17,6 +18,7 @@ enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }

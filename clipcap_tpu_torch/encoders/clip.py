@@ -124,7 +124,7 @@ class CLIPEncoder:
         return out.float().reshape(*lead, -1).cpu().numpy()
 
     def _tokens(self, captions) -> torch.Tensor:
-        from clipcap_tpu.utils.clip_tokenizer import tokenize
+        from clipcap_tpu_torch.utils.clip_tokenizer import tokenize
 
         return torch.as_tensor(tokenize(list(captions)), device=self.device)
 

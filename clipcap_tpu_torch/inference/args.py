@@ -1,8 +1,8 @@
 """Inference CLI arguments (the JAX package's flags, minus the serving
-mesh and the int8 options, which are not ported)."""
+mesh and ``--int8-weights``, which are not ported)."""
 from argparse import ArgumentParser
 
-from clipcap_tpu.utils.argtypes import str2bool
+from clipcap_tpu_torch.utils.argtypes import str2bool
 
 
 def add_inference_args(parser: ArgumentParser) -> ArgumentParser:
@@ -29,4 +29,7 @@ def add_inference_args(parser: ArgumentParser) -> ArgumentParser:
                            help="Inference settings: temperature.")
     inference.add_argument("--seed", type=int, default=0,
                            help="Sampling RNG seed (decoding is deterministic given a seed).")
+    inference.add_argument("--int8-kv-cache", action="store_true",
+                           help="Serve with an int8 KV cache (per-slot absmax scales): halves "
+                                "the decode cache's device memory. Off by default for parity.")
     return parser

@@ -30,7 +30,7 @@ def inference_demo(args: Namespace) -> int:
     captions = generate_nucleus_sampling(
         model, tokenizer, prefix, number_to_generate=args.number_to_generate,
         text_prefix_tokens=text_prefix_tokens, top_p=args.top_p, top_k=args.top_k,
-        temperature=args.temperature, seed=args.seed)
+        temperature=args.temperature, seed=args.seed, int8_kv=args.int8_kv_cache)
 
     similarities = encode_method.similarity(sample, captions)
     for caption, similarity in zip(captions, similarities.tolist()):

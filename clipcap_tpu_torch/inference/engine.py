@@ -34,7 +34,7 @@ class SamplingParams:
     include_stop_token: bool = False     # nucleus keeps the stop token; no_beam doesn't
     mode: str = "sample"                 # "greedy" | "sample" | "nucleus"
     pad_token: int = 0
-    int8_kv: bool = False                # not ported (ROADMAP.md, queue B)
+    int8_kv: bool = False                # int8 KV cache with per-slot absmax scales
 
 
 class DecodeResult(NamedTuple):
@@ -77,12 +77,10 @@ def decode(lm: GPT2, prefix_embeds: Tensor, generator: torch.Generator,
     ``prefix_embeds`` [B, P, D] (mapper prefix, plus any text-prefix
     embeddings); ``prefix_tokens`` [B, Tp] seeds the repetition-penalty
     buffer.  ``generator`` lives on the model's device."""
-    if sp.int8_kv:
-        raise NotImplementedError("int8 KV cache: not ported yet (ROADMAP.md, queue B)")
     B, P, D = prefix_embeds.shape
     N = sp.max_new_tokens
     dev = prefix_embeds.device
-    cache = init_kv_cache(lm.config, B, P + N, dtype=dtype, device=dev)
+    cache = init_kv_cache(lm.config, B, P + N, dtype=dtype, int8=sp.int8_kv, device=dev)
     hidden, cache = gpt2_apply(lm, inputs_embeds=prefix_embeds.to(dtype), kv_cache=cache,
                                cache_index=0, dtype=dtype, return_logits=False)
     cur_logits = lm_logits(lm, hidden[:, -1])                       # [B, V]

@@ -117,7 +117,7 @@ def load(model_path: str, config_path: str, device="cuda",
     onto ``device``, plus the tokenizer.  ``device="cuda"`` raises when
     CUDA is absent."""
     from clipcap_tpu_torch.config import load_yaml_config
-    from clipcap_tpu.utils.tokenizer import get_tokenizer
+    from clipcap_tpu_torch.utils.tokenizer import get_tokenizer
     from clipcap_tpu_torch.train.checkpoint import restore_params
 
     dev = resolve_device(device)

@@ -18,24 +18,38 @@ dict.  The forward is :func:`gpt2_apply`, as in the JAX package:
   reorder is an ancestry mask over the slots — the cache never moves.
   With ``cache_base`` P the first P slots hold the prefix once, visible to
   every beam (the folded-prefix layout, ``init_kv_cache(prefix_slots=P)``).
+* int8 caches (``init_kv_cache(int8=True)``): per layer a tuple of int8
+  rows and per-(slot, head) fp32 absmax scales for the K and V halves
+  (``_quantize_kv``); decode attention reads them through the kernel's
+  int8 form.
+* converged-prefix consolidation (``shared_kv`` + ``shared_len`` c, from
+  ``init_shared_kv`` / ``consolidate_kv_cache``): positions below each
+  sample's c are served from a shared cache with one slot per position,
+  the live beam cache holds the generated positions only, and decode
+  attention is one two-phase kernel pass over both
+  (``ops.flash_decode.flash_decode_two_phase``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from clipcap_tpu_torch.ops.flash_decode import flash_decode
+from clipcap_tpu_torch.ops.flash_decode import (INT8_SLOT_QUANTUM, flash_decode,
+                                                flash_decode_two_phase)
 from clipcap_tpu_torch.ops.layers import (ACTIVATIONS, Conv1D, LayerNorm, embed,
                                           empty_param, normal_init, ones_init,
                                           round_up, zeros_init)
 
 Tensor = torch.Tensor
+# One layer's cache: the interleaved K|V buffer, or (int8 rows, k-scales,
+# v-scales) for an int8 cache.
+LayerCache = Union[Tensor, Tuple[Tensor, Tensor, Tensor]]
 
 NEG_INF = -1e9  # finite mask value: keeps softmax well-defined in bf16
 
@@ -180,9 +194,18 @@ def _beam_cache_slots(n: int, quantum: int) -> int:
     return s
 
 
+def _zeros_cache(shape, n_layer: int, dtype, int8: bool, device) -> List[LayerCache]:
+    if int8:
+        return [(torch.zeros(shape, dtype=torch.int8, device=device),
+                 torch.zeros(shape[:3], device=device),
+                 torch.zeros(shape[:3], device=device)) for _ in range(n_layer)]
+    return [torch.zeros(shape, dtype=dtype, device=device) for _ in range(n_layer)]
+
+
 def init_kv_cache(cfg: GPT2Config, batch: int, max_len: int,
                   dtype=torch.bfloat16, beam_size: Optional[int] = None,
-                  prefix_slots: int = 0, device="cpu") -> List[Tensor]:
+                  prefix_slots: int = 0, int8: bool = False,
+                  device="cpu") -> List[LayerCache]:
     """Zeroed per-layer interleaved K|V buffers ``[rows, n_head, slots,
     2·head_dim]``.
 
@@ -190,20 +213,93 @@ def init_kv_cache(cfg: GPT2Config, batch: int, max_len: int,
     rows = ``batch // K`` sample groups, time-major slot ``t·K + kb``.
     With ``prefix_slots`` P (beam only): slots ``[0, P)`` hold the prefix
     once and position ``t ≥ P`` of beam row kb lives at ``P + (t-P)·K + kb``.
+    ``int8``: each layer is ``(int8 rows, sk, sv)`` with fp32 scales
+    ``[rows, n_head, slots]``, and slots are padded to 128 (the JAX
+    package's int8 quantum, so the masks of the two line up).
     """
+    quantum = INT8_SLOT_QUANTUM if int8 else CACHE_SLOT_QUANTUM
     if prefix_slots:
         if beam_size is None:
             raise ValueError("prefix_slots requires beam mode")
-        slots = _beam_cache_slots(prefix_slots + beam_size * max_len, CACHE_SLOT_QUANTUM)
+        slots = _beam_cache_slots(prefix_slots + beam_size * max_len, quantum)
         rows = batch // beam_size
     elif beam_size is not None:
-        slots = round_up(beam_size * max_len, CACHE_SLOT_QUANTUM)
+        slots = round_up(beam_size * max_len, quantum)
         rows = batch // beam_size
     else:
-        slots = round_up(max_len, CACHE_SLOT_QUANTUM)
+        slots = round_up(max_len, quantum)
         rows = batch
     shape = (rows, cfg.n_head, slots, 2 * cfg.head_dim)
-    return [torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.n_layer)]
+    return _zeros_cache(shape, cfg.n_layer, dtype, int8, device)
+
+
+def init_shared_kv(cfg: GPT2Config, groups: int, max_len: int, dtype=torch.bfloat16,
+                   int8: bool = False, device="cpu") -> List[LayerCache]:
+    """The consolidated shared-prefix cache of beam decode: one slot per
+    position (slot t = position t) for each of ``groups`` samples, laid out
+    as :func:`init_kv_cache`'s plain cache.  Beam search prefills the
+    prefix straight into it; :func:`consolidate_kv_cache` adds the
+    generated positions on which every beam of a sample agrees."""
+    quantum = INT8_SLOT_QUANTUM if int8 else CACHE_SLOT_QUANTUM
+    shape = (groups, cfg.n_head, round_up(max_len, quantum), 2 * cfg.head_dim)
+    return _zeros_cache(shape, cfg.n_layer, dtype, int8, device)
+
+
+def _split_cache(ckv: LayerCache) -> Tuple[Tensor, Optional[Tuple[Tensor, Tensor]]]:
+    """A layer's cache → (rows, (sk, sv) or None)."""
+    if isinstance(ckv, tuple):
+        return ckv[0], (ckv[1], ckv[2])
+    return ckv, None
+
+
+def consolidate_kv_cache(kv_cache: List[LayerCache], shared_kv: List[LayerCache],
+                         rows: Tensor, beam_size: int, base: int = 0) -> List[LayerCache]:
+    """Copy the converged beam prefix into the shared cache, in place.
+
+    ``rows`` [groups, W]: for position ``base + w`` of each sample, the beam
+    row whose live slot ``w·K + rows[r, w]`` holds its K/V.  Shared slots
+    ``[base, base + W)`` are rewritten (slots past the live buffer read its
+    last slot; the shared mask hides every position past the converged
+    length), slots ``[0, base)`` — the prefilled prefix — are kept.  A plain
+    index gather: exact for every cache type, the int8 scales included.
+    """
+    K = beam_size
+    R, W = rows.shape
+    idx = torch.arange(W, device=rows.device) * K + rows.clamp(0, K - 1)      # [R, W]
+    for live, shared in zip(kv_cache, shared_kv):
+        live_rows, live_scales = _split_cache(live)
+        shared_rows, shared_scales = _split_cache(shared)
+        n = min(W, shared_rows.shape[2] - base)
+        ix = idx[:, :n].clamp_max(live_rows.shape[2] - 1)[:, None, :]          # [R, 1, n]
+        H, D2 = live_rows.shape[1], live_rows.shape[3]
+        shared_rows[:, :, base:base + n] = torch.gather(
+            live_rows, 2, ix[..., None].expand(R, H, n, D2))
+        if live_scales is not None:
+            for src, dst in zip(live_scales, shared_scales):
+                dst[:, :, base:base + n] = torch.gather(src, 2, ix.expand(R, H, n))
+    return shared_kv
+
+
+def _quantize_kv(new_kv: Tensor, Dh: int) -> Tuple[Tensor, Tensor, Tensor]:
+    """[..., slots, 2·Dh] bf16/fp32 → (int8 rows, k-scales, v-scales): per
+    (slot, head) symmetric absmax scales for each half, round half to even,
+    clipped to ±127 (the JAX package's ``_quantize_kv``).  Both halves go
+    through each op together: the same arithmetic in half the eager ops."""
+    x = new_kv.float().unflatten(-1, (2, Dh))                   # [..., 2, Dh]: K, V
+    s = x.abs().amax(dim=-1).clamp_min(1e-8) / 127.0            # [..., 2]
+    q = torch.round(x / s[..., None]).clamp(-127, 127).to(torch.int8).flatten(-2)
+    return q, s[..., 0], s[..., 1]
+
+
+def _write_kv(ckv: LayerCache, new_kv: Tensor, slot0: int) -> None:
+    """Write K|V rows ``new_kv`` [R, H, S, 2·Dh] at slots ``[slot0,
+    slot0 + S)`` of a layer's cache, quantising them for an int8 cache."""
+    S = new_kv.shape[2]
+    if isinstance(ckv, tuple):
+        for dst, src in zip(ckv, _quantize_kv(new_kv, new_kv.shape[-1] // 2)):
+            dst[:, :, slot0:slot0 + S] = src
+    else:
+        ckv[:, :, slot0:slot0 + S] = new_kv
 
 
 # ---------------------------------------------------------------------------
@@ -231,24 +327,37 @@ def _mlp(x: Tensor, layer: _Block, cfg: GPT2Config) -> Tensor:
     return x + layer.mlp.c_proj(ACTIVATIONS[cfg.activation](h))
 
 
-def _decode_attend(q: Tensor, ckv: Tensor, mask: Tensor, u_valid: int) -> Tensor:
+def _decode_attend(q: Tensor, ckv: LayerCache, mask: Tensor, u_valid: int) -> Tensor:
     """Single-token attention over the written cache slots, through the
     kernel wrapper (the kernel on the card, its twin on the CPU)."""
-    return flash_decode(q.contiguous(), ckv, mask.contiguous(), u_valid)
+    kv, scales = _split_cache(ckv)
+    return flash_decode(q.contiguous(), kv, mask.contiguous(), u_valid, scales=scales)
 
 
-def _cached_block(x: Tensor, layer: _Block, ckv: Tensor, cache_index: int,
+class _SharedStep(NamedTuple):
+    """What every layer of one consolidated decode step shares: the shared
+    region's mask ``[Rm, K, Us]`` and the bounds of the two regions (host
+    ints, or device int32 ``[R]`` vectors for per-sample lengths)."""
+    mask: Tensor
+    sh_valid: Union[int, Tensor]      # shared slots [0, c)
+    lv_lo: Union[int, Tensor]         # first live slot past the consolidated positions
+
+
+def _cached_block(x: Tensor, layer: _Block, ckv: LayerCache, cache_index: int,
                   bias: Optional[Tensor], cfg: GPT2Config,
                   beam_size: Optional[int] = None,
                   ancestry: Optional[Tensor] = None,
-                  cache_base: int = 0) -> Tensor:
+                  cache_base: int = 0, shared: Optional[LayerCache] = None,
+                  shared_step: Optional[_SharedStep] = None) -> Tensor:
     """One block in cached (prefill/decode) mode; writes ``ckv`` in place.
 
     Prefill (S > 1) attends within the block only (the zero-filled cache
     is never read), so it assumes ``cache_index == 0``.  Decode (S == 1)
     attends over the written slots ``[0, u_valid)``.  In beam mode
     ``ancestry`` is the per-step ``[R, K, slots]`` selection mask built by
-    :func:`gpt2_apply`."""
+    :func:`gpt2_apply`; with ``shared`` (this layer's consolidated cache)
+    the live buffer starts at slot 0 with position ``cache_base`` and the
+    step attends over both regions in one softmax."""
     B, S, D = x.shape
     H, Dh = cfg.n_head, cfg.head_dim
     scale = 1.0 / math.sqrt(Dh)
@@ -259,7 +368,7 @@ def _cached_block(x: Tensor, layer: _Block, ckv: Tensor, cache_index: int,
         q = q.reshape(B, S, H, Dh).transpose(1, 2)          # [B, H, S, Dh]
         k = k.reshape(B, S, H, Dh).transpose(1, 2)
         v = v.reshape(B, S, H, Dh).transpose(1, 2)
-        ckv[:, :, cache_index:cache_index + S] = torch.cat([k, v], dim=-1)
+        _write_kv(ckv, torch.cat([k, v], dim=-1), cache_index)
         if S > 1:
             attn = _softmax_attend(q, k, v, None if bias is None else bias[..., :S], scale)
         else:                                # bias: the causal (+ pad) mask [Bm, 1, 1, T]
@@ -272,11 +381,12 @@ def _cached_block(x: Tensor, layer: _Block, ckv: Tensor, cache_index: int,
         kg = k.reshape(R, K, S, H, Dh).permute(0, 3, 1, 2, 4)
         vg = v.reshape(R, K, S, H, Dh).permute(0, 3, 1, 2, 4)
         # Time-major slots: positions [cache_index, cache_index + S) of all K
-        # rows are one contiguous slot range, past the folded prefix.
+        # rows are one contiguous slot range, past the folded prefix (none
+        # when the prefix lives in the shared cache).
         new_flat = torch.cat([kg, vg], -1).transpose(2, 3).reshape(R, H, S * K, 2 * Dh)
         live_index = cache_index - cache_base
-        slot0 = cache_base + live_index * K
-        ckv[:, :, slot0:slot0 + S * K] = new_flat
+        base_slot = 0 if shared is not None else cache_base
+        _write_kv(ckv, new_flat, base_slot + live_index * K)
         if ancestry is None:
             # Prefill of the replicated layout: block-local per (r, h, k).
             attn = _softmax_attend(qg, kg, vg, None if bias is None else bias[0, 0, :, :S],
@@ -285,8 +395,16 @@ def _cached_block(x: Tensor, layer: _Block, ckv: Tensor, cache_index: int,
         else:
             if S != 1:
                 raise ValueError("beam decode takes one token per step")
-            attn = _decode_attend(qg[:, :, :, 0], ckv, ancestry,
-                                  cache_base + (live_index + 1) * K)
+            q1 = qg[:, :, :, 0].contiguous()
+            if shared is None:
+                attn = _decode_attend(q1, ckv, ancestry, base_slot + (live_index + 1) * K)
+            else:
+                skv, s_scales = _split_cache(shared)
+                lkv, l_scales = _split_cache(ckv)
+                attn = flash_decode_two_phase(
+                    q1, skv, shared_step.mask, lkv, ancestry, sh_valid=shared_step.sh_valid,
+                    lv_lo=shared_step.lv_lo, lv_valid=(live_index + 1) * K,
+                    shared_scales=s_scales, live_scales=l_scales)
             attn_out = attn.transpose(1, 2).reshape(B, S, D)
 
     x = x + layer.attn.c_proj(attn_out)
@@ -314,15 +432,19 @@ def causal_bias(S: int, T: int, offset: int = 0, device="cpu") -> Tensor:
 
 
 def beam_mask(ancestry: Tensor, beam_size: int, slots: int, offset: int,
-              cache_base: int = 0) -> Tensor:
+              cache_base: int = 0, shared_len: Union[int, Tensor, None] = None) -> Tensor:
     """The per-step beam selection mask ``[R, K, slots]`` fp32: 0 where
     time-major slot ``cache_base + (t - cache_base)·K + j`` holds beam k's
     K/V for a position t ≤ ``offset`` (``ancestry[b, t - cache_base] == j``)
-    or lies in the folded prefix ``[0, cache_base)``; NEG_INF elsewhere."""
+    or lies in the folded prefix ``[0, cache_base)``; NEG_INF elsewhere.
+
+    With ``shared_len`` c (an int or a per-sample ``[R]`` tensor) the prefix
+    and the positions below c live in the shared cache: the live region
+    starts at slot 0 and hides every position below c."""
     K = beam_size
     B, Tl = ancestry.shape
     R = B // K
-    fold = cache_base
+    fold = cache_base if shared_len is None else 0
     anc = ancestry.reshape(R, K, Tl).repeat_interleave(K, dim=-1)
     anc = torch.nn.functional.pad(anc, (fold, slots - fold - K * Tl), value=-1)
     s_iota = torch.arange(slots, device=ancestry.device)
@@ -331,16 +453,40 @@ def beam_mask(ancestry: Tensor, beam_size: int, slots: int, offset: int,
     visible = (anc == s_rel % K) & (pos <= offset)
     if fold:
         visible = visible | (s_iota < fold)
+    if shared_len is not None:
+        c = torch.as_tensor(shared_len, device=ancestry.device).reshape(-1, 1, 1)
+        visible = visible & (pos >= c)
     return torch.where(visible, 0.0, NEG_INF).to(torch.float32)
+
+
+def shared_mask(shared_len: Union[int, Tensor], beam_size: int, slots: int,
+                device="cpu") -> Tensor:
+    """The shared region's mask ``[R or 1, K, slots]`` fp32: 0 on the
+    consolidated positions ``[0, c)`` of each sample, NEG_INF past them."""
+    c = torch.as_tensor(shared_len, device=device).reshape(-1, 1, 1)
+    visible = torch.arange(slots, device=device) < c
+    mask = torch.where(visible, 0.0, NEG_INF).to(torch.float32)
+    return mask.expand(c.shape[0], beam_size, slots).contiguous()
+
+
+def _shared_step(shared_kv: List[LayerCache], shared_len: Union[int, Tensor],
+                 beam_size: int, cache_base: int, device) -> _SharedStep:
+    slots = _split_cache(shared_kv[0])[0].shape[2]
+    mask = shared_mask(shared_len, beam_size, slots, device)
+    if isinstance(shared_len, Tensor):
+        c = shared_len.to(device=device, dtype=torch.int32).contiguous()
+        return _SharedStep(mask, c, ((c - cache_base) * beam_size).to(torch.int32))
+    return _SharedStep(mask, int(shared_len), (int(shared_len) - cache_base) * beam_size)
 
 
 def gpt2_apply(model: GPT2, *, input_ids: Optional[Tensor] = None,
                inputs_embeds: Optional[Tensor] = None,
                attention_mask: Optional[Tensor] = None,
-               kv_cache: Optional[List[Tensor]] = None, cache_index: int = 0,
+               kv_cache: Optional[List[LayerCache]] = None, cache_index: int = 0,
                dtype=torch.float32, return_logits: bool = True,
                beam_size: Optional[int] = None, ancestry: Optional[Tensor] = None,
-               cache_base: int = 0, remat: bool = False):
+               cache_base: int = 0, shared_kv: Optional[List[LayerCache]] = None,
+               shared_len: Union[int, Tensor, None] = None, remat: bool = False):
     """GPT-2 forward → ``(logits_or_hidden, kv_cache)``.
 
     ``kv_cache=None``: full-sequence causal attention (``attention_mask``
@@ -350,7 +496,11 @@ def gpt2_apply(model: GPT2, *, input_ids: Optional[Tensor] = None,
     the new K/V at the host int ``cache_index``; ``attention_mask`` is then
     over cache slots.  Beam decode: ``beam_size`` K and ``ancestry``
     [B, Tl] (``ancestry[b, t]`` = the group row holding beam b's K/V for
-    position ``cache_base + t``).
+    position ``cache_base + t``).  Consolidated beam decode adds
+    ``shared_kv`` (per-layer caches from :func:`init_shared_kv`) and
+    ``shared_len`` c (an int, or a per-sample int ``[R]`` tensor on the
+    cache's device): positions below c are read from the shared cache, the
+    live cache holds positions from ``cache_base`` on from slot 0.
     """
     cfg = model.config
     if inputs_embeds is None:
@@ -360,7 +510,7 @@ def gpt2_apply(model: GPT2, *, input_ids: Optional[Tensor] = None,
     dev = x.device
 
     if kv_cache is not None:
-        slots = kv_cache[0].shape[2]
+        slots = _split_cache(kv_cache[0])[0].shape[2]
         if S > 1 and cache_index != 0:
             raise ValueError("cached prefill (S > 1) requires cache_index == 0: "
                              "prefill attention is block-local and ignores earlier "
@@ -382,15 +532,19 @@ def gpt2_apply(model: GPT2, *, input_ids: Optional[Tensor] = None,
         bias = bias + pad_bias[:, None, None, :]
 
     if kv_cache is not None:
-        mask = None
+        mask = step = None
         if ancestry is not None:
             if beam_size is None or S != 1:
                 raise ValueError("ancestry needs beam_size and one token per step")
-            mask = beam_mask(ancestry, beam_size, slots, offset, cache_base)
-        for layer, ckv in zip(model.h, kv_cache):
+            if shared_kv is not None:
+                step = _shared_step(shared_kv, shared_len, beam_size, cache_base, dev)
+            mask = beam_mask(ancestry, beam_size, slots, offset, cache_base,
+                             shared_len if shared_kv is not None else None)
+        shared_layers = [None] * cfg.n_layer if step is None else shared_kv
+        for layer, ckv, sh in zip(model.h, kv_cache, shared_layers):
             x = _cached_block(x, layer, ckv, cache_index, None if mask is not None else bias,
                               cfg, beam_size=beam_size, ancestry=mask,
-                              cache_base=cache_base)
+                              cache_base=cache_base, shared=sh, shared_step=step)
     else:
         for layer in model.h:
             if remat:

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels from ``csrc/`` and bind them with ctypes.
 
-The sources are compiled at first use with ``nvcc`` into one shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds, not minutes).  The library lands in ``build/clipcap_tpu_torch/``
+The sources are compiled at first use with ``nvcc``, one process per
+source, all started together, and linked into one shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds, not
+minutes).  The library lands in ``build/clipcap_tpu_torch/``
 at the root of the checkout and is named after a hash of the sources and
 flags, so an edit to any source rebuilds it and a stale library is never
 loaded.  Each C entry point launches on the stream it is given and returns
@@ -28,15 +29,21 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "clipcap_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes of the C interface (csrc/common.cuh ``DType``).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
-    # q, kv, mask, out, R, H, K, U, Rm, u_valid, dtype, scale, stream
-    "clipcap_flash_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, kv, sk, sv, mask, out, m_in, l_in, acc_in, m_out, l_out, acc_out,
+    # lo_vec, hi_vec, R, H, K, U, Rm, lo, hi, dtype, scale, stream
+    "clipcap_flash_decode": [_P] * 14 + [_I] * 8 + [_F, _P],
+    # q, skv, ssk, ssv, smask, Us, sRm, sh_hi_vec, sh_hi, lkv, lsk, lsv,
+    # lmask, Ul, lRm, lv_lo_vec, lv_lo, lv_hi_vec, lv_hi, out, R, H, K,
+    # dtype, scale, stream
+    "clipcap_flash_decode_two_phase": [_P] * 5 + [_I, _I, _P, _I] + [_P] * 4
+    + [_I, _I, _P, _I, _P, _I, _P] + [_I] * 4 + [_F, _P],
     # qkv, out, B, N, H, causal, dtype, scale, stream
     "clipcap_sdpa_packed": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
     # table, n, total, lr, b1, b2, eps, wd, bc1, bc2, stream
@@ -70,16 +77,32 @@ def _nvcc() -> str:
 
 
 def build(path: Path) -> None:
-    """Compile every ``csrc/*.cu`` into ``path``; the compiler's report
-    (registers, shared memory, spills per kernel) goes to ``path``.log."""
+    """Compile every ``csrc/*.cu`` (one ``nvcc`` each, in parallel) and link
+    them into ``path``; the compiler's report (registers, shared memory,
+    spills per kernel) goes to ``path``.log."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{path.stem}.{os.getpid()}"
+    objects, procs = [], []
+    for src in (s for s in sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objects.append(obj)
+        procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    reports = [(p.args[-3], p.communicate()[0], p.returncode) for p in procs]
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources() if s.suffix == ".cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    path.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {res.returncode}:\n{res.stderr}")
+    failed = [r for r in reports if r[2] != 0]
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                               *map(str, objects)], capture_output=True, text=True)
+        reports.append(("link", link.stdout + link.stderr, link.returncode))
+        failed = [r for r in reports[-1:] if r[2] != 0]
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    log = "".join(f"== {name} (exit {rc})\n{text}" for name, text, rc in reports)
+    path.with_suffix(".log").write_text(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {[r[0] for r in failed]}:\n{log}")
     os.replace(tmp, path)             # atomic: concurrent builders agree
 
 

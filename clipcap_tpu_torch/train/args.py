@@ -1,8 +1,7 @@
 """Training CLI args: the flags of ``clipcap_tpu/train/args.py`` (itself at
 parity with the reference's), for the port on one device.
 
-That module cannot be imported here: ``clipcap_tpu/train/__init__.py``
-imports JAX.  What differs:
+What differs:
 
 * ``--device`` names one CUDA index, or ``cpu``; ``-1`` is the one visible
   GPU.  Several devices wait for ROADMAP.md A9;
@@ -14,7 +13,7 @@ imports JAX.  What differs:
 """
 from argparse import ArgumentParser
 
-from clipcap_tpu.utils.argtypes import str2bool
+from clipcap_tpu_torch.utils.argtypes import str2bool
 
 
 def add_training_args(parser: ArgumentParser) -> ArgumentParser:

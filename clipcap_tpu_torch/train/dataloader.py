@@ -17,7 +17,7 @@ from typing import Iterator, List, Tuple
 
 import numpy as np
 
-from clipcap_tpu.utils.tokenizer import get_tokenizer
+from clipcap_tpu_torch.utils.tokenizer import get_tokenizer
 from clipcap_tpu_torch.train.reader import EmbeddingReader
 
 

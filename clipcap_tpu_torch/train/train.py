@@ -21,7 +21,7 @@ from pathlib import Path
 import torch
 import yaml
 
-from clipcap_tpu.models.args import add_model_args
+from clipcap_tpu_torch.models.args import add_model_args
 from clipcap_tpu_torch.config import Config, EncoderConfig, TrainingConfig
 from clipcap_tpu_torch.models.clipcap import init_clipcap
 from clipcap_tpu_torch.train.args import add_training_args
