@@ -9,6 +9,11 @@ Phases (any failure exits non-zero before the last line):
    two-phase decode kernels at GPT-2 XL beam-5 shapes (R = 96, H = 25,
    K = 5): the int8 folded cache, per-row bounds, the carry, and bf16/fp32
    or int8 shared + live regions with a random per-sample converged length;
+   ``sdpa_packed`` also at ViT-L/14's row length (N = 257, D = 1024, 16
+   heads: the preprocess path's shape); the patch-embed kernel at ViT-L/14
+   b256 and ViT-B/32 b512 shapes, odd batches, test-tiny's width 64 and a
+   batch that does not start 16-byte aligned, with and without bias
+   (within one bf16 ulp of the largest output, 2^-7·max|ref|);
 3. the captioning slice at full width (CLIP ViT-B/32, the 8-layer
    transformer mapper, GPT-2 124M) with seeded weights, through the public
    entry points: save an ``.npz`` + YAML, ``load(..., device="cuda")``,
@@ -19,7 +24,7 @@ Phases (any failure exits non-zero before the last line):
    decode attention patched to the twin, here only);
 4. timings (information, not gates): beam-5 captions/s (GPT-2 + mapper in
    bf16, batch 128, 67 new tokens), ViT-B/32 embeds/s (batch 512, uint8),
-   each kernel against its twin;
+   each kernel against its twin (``sdpa_packed`` also at ViT-L/14 b256);
 5. a ``torch.profiler`` trace of one batch of each timed workload: wall
    time, device busy time and idle share, kernel launches, and the kernels
    that take the most device time;
@@ -49,7 +54,22 @@ Phases (any failure exits non-zero before the last line):
    caches) must launch both new kernels.  Information: captions/s and peak
    device memory of (bf16|int8, C=0|8) at b96 bf16, a ``torch.profiler``
    breakdown of the (int8, C=0) batch, each new kernel against its twin
-   and its bound.
+   and its bound;
+8. the preprocess stage at CLIP ViT-L/14 (seeded weights) through
+   ``clipcap_tpu_torch.preprocess``'s entry point, batch 256, on 1,024
+   seeded noise JPEGs of two sizes with ``.txt`` captions in two output
+   partitions, and a webdataset shard of 256 more with ``json/caption``
+   captions.  Gates: exit 0, fp32 ``[n, 768]`` finite embeddings, captions
+   equal to the sources in key order, ``encoder_embedding_size: 768``,
+   ``patch_embed`` and ``sdpa_packed`` (23 per batch) launched, and the
+   first 256 images of partition 0 through the same encoder with the patch
+   embedding patched to its twin (here only) within cosine 0.999 of the
+   written rows.  Information: images/s of each run through the runner
+   (read/decode + encode + write, the per-image cost) and end to end with
+   the encoder build, the runner's split, ViT-L/14 b256 embeds/s with the kernel and
+   with the twin, a ``torch.profiler`` breakdown of one batch, and the
+   patch kernel against its twin, ``F.conv2d`` and the eager route at both
+   shapes.
 
 Every kernel's row carries its bound (bytes over 3.35 TB/s or operations
 over the data sheet's peak, whichever is larger) and the time of one
@@ -181,13 +201,62 @@ def check_kernels(dev):
                     flash_decode(q, kv, mask, pos + 1), flash_decode_ref(q, kv, mask, pos + 1))
         for B, N, D, H, causal, label in ((8, 50, 768, 12, False, "ViT-B/32"),
                                           (5, 77, 512, 8, True, "text tower"),
+                                          (32, 257, 1024, 16, False, "ViT-L/14"),
                                           (2, 577, 1024, 16, False, "N=577")):
             qkv = torch.randn(B, N, 3 * D, generator=g, device=dev).to(dtype)
             compare("sdpa_packed", f"{label} B={B} N={N} D={D} causal={causal}", dtype,
                     sdpa_packed(qkv, H, causal=causal), sdpa_packed_ref(qkv, H, causal=causal))
         check_kv_kernels(dev, g, dtype, compare)
+    err["patch_embed"] = check_patch_embed(dev, g)
     torch.cuda.synchronize()
     return err
+
+
+# Patch-embed shapes: (batch, image side, patch, width).
+PATCH_SHAPES = {"ViT-L/14 b256": (256, 224, 14, 1024), "ViT-B/32 b512": (512, 224, 32, 768)}
+
+
+def patch_inputs(g, B, S, P, D, dev):
+    """Seeded uint8 images [B, S, S, 3], a bf16 [3P², D] weight and bias."""
+    imgs = torch.randint(0, 256, (B, S, S, 3), generator=g, device=dev, dtype=torch.uint8)
+    w = (torch.randn(3 * P * P, D, generator=g, device=dev) * 0.01).to(torch.bfloat16)
+    # A bias the size of the outputs: dropping or mis-indexing it misses by
+    # about ten times the tolerance.
+    bias = (torch.randn(D, generator=g, device=dev) * 5).to(torch.bfloat16)
+    return imgs, w, bias
+
+
+def check_patch_embed(dev, g) -> float:
+    """Phase 2, the patch-embed kernel against its twin: the main path's
+    shapes, odd batches (M = 3·49 or 3·256 patches, not a multiple of the
+    kernel's 128-row tile), test-tiny's width 64, and a batch that does
+    not start 16-byte aligned (the byte path at P = 32), with and without
+    bias.  Tolerance one bf16 ulp of the largest output: both sum the same
+    bf16 products in fp32 in another order and round once."""
+    from clipcap_tpu_torch.ops.patch_embed import patch_embed, patch_embed_ref
+
+    cases = [(label, *shape) for label, shape in PATCH_SHAPES.items()]
+    cases += [("odd batch", 3, 224, 32, 768), ("odd batch", 3, 224, 14, 1024),
+              ("test-tiny", 3, 32, 16, 64), ("unaligned", 3, 224, 32, 768)]
+    worst = 0.0
+    for label, B, S, P, D in cases:
+        imgs, w, bias = patch_inputs(g, B, S, P, D, dev)
+        if label == "unaligned":
+            flat = torch.empty(imgs.numel() + 1, dtype=torch.uint8, device=dev)
+            imgs = flat[1:].view_as(imgs).copy_(imgs)
+        # What a kernel that dropped the bias would miss by.
+        miss = (patch_embed_ref(imgs, w, bias, P).float()
+                - patch_embed_ref(imgs, w, None, P).float()).abs().max().item()
+        for b in (bias, None):
+            want = patch_embed_ref(imgs, w, b, P).float()
+            d = (patch_embed(imgs, w, b, P).float() - want).abs().max().item()
+            tol = 2 ** -7 * want.abs().max().item()
+            print(f"kernel patch_embed {label} B={B} {S}x{S} P={P} D={D} bias={b is not None}: "
+                  f"max|d| {d:.3g} (tol {tol:.3g}; a dropped bias: {miss:.3g})")
+            if not d <= tol:
+                raise AssertionError(f"patch_embed {label}: max|d| {d} over {tol}")
+            worst = max(worst, d)
+    return worst
 
 
 def int8_cache(g, R, H, U, dev):
@@ -338,8 +407,12 @@ def time_kernels(dev, tag: str):
         **decode_bound(q, [(R * u, 256, R * u)], bf)}
     print(f"time [{tag}] flash_decode beam R={R} H={H} K={K} u_valid={u} bf16: "
           f"{out['flash_decode']}")
-    for B, N, D, H, causal, label in ((512, 50, 768, 12, False, "ViT-B/32 b512"),
-                                      (5, 77, 512, 8, True, "text tower b5")):
+    # The row of the kernels JSON is ViT-B/32 b512 (the captioning slice);
+    # ViT-L/14 b256 (N = 257) is the preprocess path's shape.
+    for B, N, D, H, causal, label, key in (
+            (512, 50, 768, 12, False, "ViT-B/32 b512", "sdpa_packed"),
+            (5, 77, 512, 8, True, "text tower b5", None),
+            (256, 257, 1024, 16, False, "ViT-L/14 b256", "sdpa_packed_vit_l14")):
         qkv = torch.randn(B, N, 3 * D, generator=g, device=dev).to(bf)
         heads = qkv.view(B, N, 3, H, D // H).permute(2, 0, 3, 1, 4)
         t = {"ms": cuda_ms(lambda: sdpa_packed(qkv, H, causal=causal)),
@@ -347,8 +420,10 @@ def time_kernels(dev, tag: str):
              "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                  *heads, is_causal=causal)),
              **bound(4 * B * N * D * 2, 4 * B * N * N * D, bf)}
-        out.setdefault("sdpa_packed", t)
+        if key:
+            out[key] = t
         print(f"time [{tag}] sdpa_packed {label} bf16: {t}")
+        del qkv, heads
     return out
 
 
@@ -389,6 +464,37 @@ def time_kv_kernels(dev, tag: str):
         print(f"time [{tag}] flash_decode_two_phase R={R} H={H} K={K} step {step} int8={int8} "
               f"({shared_slots} shared + {live_slots} live slots over the rows): {t}")
         out.setdefault("flash_decode_two_phase", t)
+    return out
+
+
+def time_patch_embed(dev, tag: str):
+    """Phase 8e: the patch-embed kernel against its twin, ``F.conv2d`` (the
+    library call: a bf16 NCHW image, a layout the port never holds, and
+    the folded weight as a stride-P convolution) and the eager cast +
+    ``patchify`` + ``linear`` route, at both shapes; the row of the kernels
+    JSON is ViT-L/14 b256, the main path's shape."""
+    import torch.nn.functional as F
+
+    from clipcap_tpu_torch.ops.layers import linear
+    from clipcap_tpu_torch.ops.patch_embed import patch_embed, patch_embed_ref, patchify
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    bf = torch.bfloat16
+    out = None
+    for label, (B, S, P, D) in PATCH_SHAPES.items():
+        imgs, w, bias = patch_inputs(g, B, S, P, D, dev)
+        nchw = imgs.permute(0, 3, 1, 2).to(bf).contiguous()
+        conv_w = w.t().reshape(D, 3, P, P).contiguous()
+        M, K = B * (S // P) ** 2, 3 * P * P
+        t = {"ms": cuda_ms(lambda: patch_embed(imgs, w, bias, P)),
+             "plain_ms": cuda_ms(lambda: patch_embed_ref(imgs, w, bias, P)),
+             "library_ms": cuda_ms(lambda: F.conv2d(nchw, conv_w, bias, stride=P)),
+             **bound(imgs.numel() + 2 * (w.numel() + D + M * D), 2 * M * K * D, bf)}
+        eager = cuda_ms(lambda: linear(patchify(imgs.to(bf), P), w, bias))
+        print(f"time [{tag}] patch_embed {label} (M={M}, K={K}, D={D}): {t}; eager cast + "
+              f"patchify + linear {eager:.4f} ms; {2 * M * K * D / t['ms'] / 1e9:.1f} TFLOP/s; "
+              f"library_ms is F.conv2d on a bf16 NCHW copy, not the uint8 NHWC input")
+        out = out or t
     return out
 
 
@@ -1014,8 +1120,187 @@ def run_xl(dev, slice_dir: Path, tag: str):
     return {name: {"launches": launches[name], **times[name]} for name in launches}
 
 
+PRE_FILES, PRE_WDS, PRE_BATCH, PRE_DIM, PRE_VARIANT = 1024, 256, 256, 768, "ViT-L_14"
+
+
+def write_preprocess_inputs(root: Path):
+    """Phase 8a: seeded noise JPEGs, half 256x320 and half 320x256 (so the
+    transform resizes and crops both ways): 1,024 with ``.txt`` captions in
+    a folder, 256 in a webdataset shard with ``json/caption`` metadata.
+    Returns the captions of each in key order."""
+    import tarfile
+
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+
+    def jpeg(i):
+        shape = (256, 320, 3) if i % 2 else (320, 256, 3)
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, shape, dtype=np.uint8)).save(buf, format="JPEG",
+                                                                          quality=90)
+        return buf.getvalue()
+
+    files, wds = root / "files", root / "wds"
+    files.mkdir(parents=True)
+    wds.mkdir()
+    file_captions = [f"seeded noise image {i}, {'wide' if i % 2 else 'tall'}"
+                     for i in range(PRE_FILES)]
+    for i, text in enumerate(file_captions):
+        (files / f"img_{i:05d}.jpg").write_bytes(jpeg(i))
+        (files / f"img_{i:05d}.txt").write_text(text)
+    wds_captions = [f"webdataset noise image {i}" for i in range(PRE_WDS)]
+    with tarfile.open(wds / "shard-0000.tar", "w") as tar:
+        for i, text in enumerate(wds_captions):
+            for name, data in ((f"{i:06d}.jpg", jpeg(PRE_FILES + i)),
+                               (f"{i:06d}.json", json.dumps({"caption": text}).encode())):
+                info = tarfile.TarInfo(name)
+                info.size = len(data)
+                tar.addfile(info, io.BytesIO(data))
+    return file_captions, wds_captions
+
+
+def preprocess_cli(dev, label: str, argv, built: list, n: int):
+    """Phase 8b: one run of ``clipcap_tpu_torch.preprocess``'s entry point;
+    the encoder it builds is kept in ``built``.  Prints images/s end to end
+    (encoder build included) and the runner's split."""
+    import importlib
+
+    from clipcap_tpu_torch.encoders.base import get_encoder_from_config
+
+    pre_mod = importlib.import_module("clipcap_tpu_torch.preprocess.preprocess")
+
+    def recording(*args, **kwargs):
+        built.append(get_encoder_from_config(*args, **kwargs))
+        return built[-1]
+
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(), contextlib.redirect_stdout(_Tee(sys.stdout, log)), \
+            mock.patch.object(pre_mod, "get_encoder_from_config", recording):
+        warnings.simplefilter("ignore")               # seeded CLIP: no checkpoint offline
+        rc = pre_mod.start_preprocess([*argv, "--encoder-model-variant", PRE_VARIANT,
+                                       "--batch-size", str(PRE_BATCH), "--device", str(dev)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    split = {}
+    for text in re.findall(r"^partition \d+: .*; (.*)\)$", log.getvalue(), re.M):
+        for name, secs in re.findall(r"([\w/]+) ([\d.]+)s", text):
+            split[name] = round(split.get(name, 0.0) + float(secs), 3)
+    print(f"preprocess ({label}): exit {rc}; {n} images in {seconds:.1f} s end to end, encoder "
+          f"build included ({n / seconds:.1f} images/s); runner {split} s "
+          f"({n / max(sum(split.values()), 1e-9):.1f} images/s)")
+    if rc != 0:
+        raise AssertionError(f"preprocess ({label}): exit {rc}")
+
+
+def check_dataset(out: Path, partitions: list, label: str):
+    """Phase 8c: the layout the JAX package writes; ``partitions`` holds
+    each partition's source captions in key order."""
+    import pandas as pd
+    import yaml
+
+    config = yaml.safe_load((out / "encoder_config.yaml").read_text())
+    if (config["encoder_embedding_size"], config["encoder_model_variant"]) != (PRE_DIM,
+                                                                               PRE_VARIANT):
+        raise AssertionError(f"preprocess ({label}): encoder_config.yaml {config}")
+    for i, captions in enumerate(partitions):
+        e = np.load(out / "embeddings" / f"embeds_{i}.npy")
+        got = list(pd.read_parquet(out / "captions" / f"captions_{i}.parquet")["caption"])
+        if e.dtype != np.float32 or e.shape != (len(captions), PRE_DIM) \
+                or not np.isfinite(e).all():
+            raise AssertionError(f"preprocess ({label}): embeds_{i} {e.dtype} {e.shape}")
+        if got != captions:
+            raise AssertionError(f"preprocess ({label}): captions_{i} differ from the sources")
+    print(f"preprocess ({label}): {[len(c) for c in partitions]} rows x {PRE_DIM} fp32, finite; "
+          f"captions equal the sources in key order; encoder_embedding_size {PRE_DIM}")
+
+
+def run_preprocess(dev, workdir: Path, tag: str):
+    """Phase 8: the preprocess stage at ViT-L/14.  Returns the patch_embed
+    row of the kernels JSON and the sdpa_packed launches of the run."""
+    from clipcap_tpu_torch.models import clip_vit
+    from clipcap_tpu_torch.models.clip_vit import clip_encode_image
+    from clipcap_tpu_torch.ops.attention import sdpa_packed
+    from clipcap_tpu_torch.ops.patch_embed import patch_embed, patch_embed_ref
+
+    t_phase = time.perf_counter()
+    raw = workdir / "raw"
+    file_captions, wds_captions = write_preprocess_inputs(raw)
+    print(f"preprocess: wrote {PRE_FILES} + {PRE_WDS} seeded noise JPEGs in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    built = []
+    batches = 2 * math.ceil(PRE_FILES / 2 / PRE_BATCH) + math.ceil(PRE_WDS / PRE_BATCH)
+    blocks = clip_vit.get_clip_config(PRE_VARIANT).vision.layers - 1    # sdpa_packed's
+
+    # The main path: every count set to 0 just before, read just after.
+    patch_embed.launches = sdpa_packed.launches = 0
+    preprocess_cli(dev, "files, 2 partitions",
+                   ["--input-dataset", str(raw / "files"), "--output-folder",
+                    str(workdir / "out_files"), "--output-partition-count", "2"],
+                   built, PRE_FILES)
+    preprocess_cli(dev, "webdataset",
+                   ["--input-dataset", str(raw / "wds" / "shard-{0000..0000}.tar"),
+                    "--input-format", "webdataset", "--wds-caption-key", "json/caption",
+                    "--output-folder", str(workdir / "out_wds")],
+                   built, PRE_WDS)
+    launches = {"patch_embed": patch_embed.launches, "sdpa_packed": sdpa_packed.launches}
+    print(f"preprocess: {batches} batches of <= {PRE_BATCH}; launches {launches}")
+    if launches["patch_embed"] < batches or launches["sdpa_packed"] < blocks * batches:
+        raise AssertionError(f"preprocess: launches {launches} for {batches} batches")
+    check_dataset(workdir / "out_files", [file_captions[0::2], file_captions[1::2]],
+                  "files, 2 partitions")
+    check_dataset(workdir / "out_wds", [wds_captions], "webdataset")
+
+    # The same images through the same encoder with the patch embedding
+    # patched to its twin (here only; the port has no switch).
+    encoder, transform = built[0]
+    keys = sorted(f"img_{i:05d}" for i in range(PRE_FILES))[0::2][:PRE_BATCH]
+    batch = np.stack([transform(str(raw / "files" / f"{k}.jpg")) for k in keys])
+    written = np.load(workdir / "out_files" / "embeddings" / "embeds_0.npy")[:PRE_BATCH]
+    n0 = patch_embed.launches
+    with mock.patch.object(clip_vit, "patch_embed", patch_embed_ref):
+        plain = encoder(batch)
+    if patch_embed.launches != n0:
+        raise AssertionError("the twin route launched the patch_embed kernel")
+    cos = (plain * written).sum(-1) / (np.linalg.norm(plain, axis=-1)
+                                       * np.linalg.norm(written, axis=-1))
+    print(f"preprocess: {PRE_BATCH} images, written rows (kernel) vs the twin route: min cosine "
+          f"{cos.min():.6f} (gate 0.999), max|d| {np.abs(plain - written).max():.4g} at "
+          f"max|ref| {np.abs(plain).max():.4g}")
+    if not cos.min() >= 0.999:
+        raise AssertionError(f"preprocess: cosine {cos.min()} under 0.999")
+
+    # ViT-L/14 b256 embeds/s on device tensors, kernel and twin.
+    visual = copy.deepcopy(encoder.model.visual).to(torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(7)
+    side = encoder.config.vision.image_size
+    inputs = [torch.randint(0, 256, (PRE_BATCH, side, side, 3), generator=g, device=dev,
+                            dtype=torch.uint8) for _ in range(3)]
+
+    @torch.no_grad()
+    def embed(x):
+        return clip_encode_image(visual, x, dtype=torch.bfloat16)
+
+    rates = {}
+    for route in ("kernel", "twin", "kernel"):
+        patch = (mock.patch.object(clip_vit, "patch_embed", patch_embed_ref) if route == "twin"
+                 else contextlib.nullcontext())
+        with patch:
+            per_trial = rate(embed, inputs, PRE_BATCH)
+        rates.setdefault(route, []).extend(per_trial)
+        print(f"time [{tag}] ViT-L/14 b{PRE_BATCH} bf16 uint8, patch embedding by the {route}: "
+              f"embeds/s per trial {per_trial}; median {statistics.median(per_trial):.1f}")
+    med = statistics.median(rates["kernel"])
+    profile(embed, inputs[0], PRE_BATCH * 1e3 / med, f"ViT-L/14 b{PRE_BATCH}", tag)
+    del visual, inputs, built, encoder
+    times = time_patch_embed(dev, tag)
+    print(f"preprocess: phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches["patch_embed"], **times}, launches["sdpa_packed"]
+
+
 def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict) -> list:
-    """Phases 3-7 in ``workdir``; returns the kernels' rows."""
+    """Phases 3-8 in ``workdir``; returns the kernels' rows."""
     slice_dir, train_dir = workdir / "slice", workdir / "train"
     slice_dir.mkdir()
     train_dir.mkdir()
@@ -1027,7 +1312,8 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
           f"per trial {beam_cps}")
     vit, vit_inputs = vit_workload(encoder, dev)
     embeds = rate(vit, vit_inputs, 512)
-    print(f"time [{name_limit}] ViT-B/32 b512 bf16 uint8: embeds/s per trial {embeds}")
+    print(f"time [{name_limit}] ViT-B/32 b512 bf16 uint8 (patch embedding by the patch_embed "
+          f"kernel): embeds/s per trial {embeds}")
     print(f"host: {dispatch_us(dev)} us of host time per eager op (one-element add)")
     print(f"summary [{name_limit}; {host_line}]: beam-5 GPT-2 b128 bf16 median "
           f"{statistics.median(beam_cps):.1f} captions/s of {len(beam_cps)} trials; "
@@ -1041,6 +1327,10 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
     adamw_row = run_training(dev, train_dir, name_limit)
     torch.cuda.empty_cache()
     xl_rows = run_xl(dev, slice_dir, name_limit)
+    torch.cuda.empty_cache()
+    pre_dir = workdir / "preprocess"
+    pre_dir.mkdir()
+    patch_row, pre_sdpa_launches = run_preprocess(dev, pre_dir, name_limit)
 
     def row(name, source, replaces, **numbers):
         return {"name": name, "route": "cuda", "source": f"clipcap_tpu_torch/csrc/{source}",
@@ -1052,12 +1342,15 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
             **times["flash_decode"]),
         row("sdpa_packed", "sdpa_packed.cu", "clipcap_tpu/ops/attention.py:244",
             launches=launches["sdpa_packed"], max_abs_err=errors["sdpa_packed"],
-            **times["sdpa_packed"]),
+            **times["sdpa_packed"],
+            vit_l14_b256={"launches": pre_sdpa_launches, **times["sdpa_packed_vit_l14"]}),
         adamw_row,
         row("flash_decode_int8", "flash_decode.cu", "clipcap_tpu/ops/flash_decode.py:407",
             max_abs_err=errors["flash_decode_int8"], **xl_rows["flash_decode_int8"]),
         row("flash_decode_two_phase", "flash_decode.cu", "clipcap_tpu/ops/flash_decode.py:784",
             max_abs_err=errors["flash_decode_two_phase"], **xl_rows["flash_decode_two_phase"]),
+        row("patch_embed", "patch_embed.cu", "clipcap_tpu/ops/patch_embed.py:112",
+            max_abs_err=errors["patch_embed"], **patch_row),
     ]
 
 
@@ -1075,7 +1368,7 @@ def main() -> int:
 
     from clipcap_tpu_torch.ops import _build
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _build.load_library()
     print(f"kernels: built {_build.library_path().relative_to(ROOT)} from "
           f"{[str(s.relative_to(ROOT)) for s in _build.sources()]} in "
@@ -1092,6 +1385,7 @@ def main() -> int:
     if "jax" in sys.modules or any(n.split(".")[0] == "clipcap_tpu" for n in sys.modules):
         raise AssertionError("the port loaded jax or the JAX package")
 
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(name_limit)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

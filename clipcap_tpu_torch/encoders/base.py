@@ -3,7 +3,7 @@
 Counterpart of ``clipcap_tpu/encoders/base.py``.  The encoder is callable
 on a batch of transformed samples and returns numpy embeddings; the
 transform maps a file path / BytesIO to one sample array.  Only CLIP ViT
-encoders are ported; CLAP raises.
+encoders are ported; CLAP and the int8 (w8a8) encoder raise.
 """
 from __future__ import annotations
 
@@ -15,7 +15,11 @@ from clipcap_tpu_torch.config import EncoderConfig
 def get_encoder(encoder_model_name: str, encoder_model_variant: str,
                 normalize_embeddings: bool = False, window_size: Optional[int] = None,
                 use_windowed_embeddings: bool = False, window_overlap_percentage: float = 0.0,
-                device="cuda", checkpoint_path: Optional[str] = None) -> Tuple[Callable, Callable]:
+                device="cuda", checkpoint_path: Optional[str] = None,
+                int8: bool = False) -> Tuple[Callable, Callable]:
+    if int8:
+        raise NotImplementedError("the int8 (w8a8) encoder is not ported yet "
+                                  "(ROADMAP.md A13: ops/quant.py)")
     if encoder_model_name == "clip":
         from clipcap_tpu_torch.encoders.clip import get_clip_encoder
 
@@ -31,7 +35,7 @@ def get_encoder(encoder_model_name: str, encoder_model_variant: str,
 
 
 def get_encoder_from_config(config: EncoderConfig, device="cuda",
-                            checkpoint_path: Optional[str] = None):
+                            checkpoint_path: Optional[str] = None, int8: bool = False):
     variant = config.encoder_model_variant
     if config.encoder_model_name == "clip":
         variant = variant.replace("_", "/")   # CLI variant un-mangling
@@ -40,7 +44,7 @@ def get_encoder_from_config(config: EncoderConfig, device="cuda",
                        use_windowed_embeddings=config.use_windowed_embeddings,
                        window_size=config.window_size,
                        window_overlap_percentage=config.window_overlap_percentage,
-                       device=device, checkpoint_path=checkpoint_path)
+                       device=device, checkpoint_path=checkpoint_path, int8=int8)
 
 
 def get_encoder_from_model(model, device=None):

@@ -8,9 +8,11 @@ Counterpart of ``clipcap_tpu/models/clip_vit.py`` for the ViT presets.
 dict and an OpenAI checkpoint loads with ``load_state_dict``.
 
 Images arrive uint8 ``[B, H, W, 3]``; the /255 and the channel
-normalisation are folded into the patch weights.  Every block's attention
-but the last image block's goes through ``ops.attention.sdpa_packed`` —
-the CUDA kernel for tensors on the card.
+normalisation are folded into the patch weights, and in bf16 the patch
+embedding goes through ``ops.patch_embed.patch_embed``.  Every block's
+attention but the last image block's goes through
+``ops.attention.sdpa_packed``.  Both are CUDA kernels for tensors on the
+card.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from torch import nn
 from clipcap_tpu_torch.ops.attention import sdpa_packed
 from clipcap_tpu_torch.ops.layers import (LayerNorm, Linear, empty_param, linear,
                                           normal_init, ones_init, quick_gelu, zeros_init)
+from clipcap_tpu_torch.ops.patch_embed import patch_embed, patch_embed_supported, patchify
 
 Tensor = torch.Tensor
 
@@ -261,19 +264,13 @@ def _clip_block_cls(x: Tensor, block: _ResidualBlock, heads: int) -> Tensor:
     return _finish_block(x[:, :1], a, block)[:, 0]
 
 
-def patchify(images: Tensor, patch: int) -> Tensor:
-    """[B, H, W, 3] → [B, (H/p)(W/p), 3·p·p], patch rows ordered (c, ph, pw)
-    as the flattened Conv2d weight."""
-    B, H, W, C = images.shape
-    gh, gw = H // patch, W // patch
-    x = images.reshape(B, gh, patch, gw, patch, C).permute(0, 1, 3, 5, 2, 4)
-    return x.reshape(B, gh * gw, C * patch * patch)
-
-
 def clip_encode_image(visual: VisionTransformer, images: Tensor, *,
                       dtype=torch.float32, normalize_pixels: bool = True) -> Tensor:
     """ViT forward → [B, embed_dim] (``model.encode_image``).  ``images``:
-    [B, H, W, 3] uint8 (or float in [0, 1])."""
+    [B, H, W, 3] uint8 (or float in [0, 1]).  In bf16, uint8 images whose
+    sides divide by the patch take the patch-embed kernel wrapper (the CUDA
+    kernel for tensors on the card); every other input the eager
+    ``patchify`` + ``linear``."""
     cfg = visual.config
     D, p = cfg.width, cfg.patch_size
     w32 = visual.conv1.weight.float().reshape(D, -1).t()        # [3·p·p, D]
@@ -290,10 +287,16 @@ def clip_encode_image(visual: VisionTransformer, images: Tensor, *,
             scale = scale / 255.0
         w = (w32 * scale[:, None]).to(dtype)
         bias0 = (-(mean / std) @ w32).to(dtype)
-    x = images.to(dtype)
-    if not normalize_pixels and images.dtype == torch.uint8:
-        x = x / 255.0
-    x = linear(patchify(x, p), w, bias0)                        # [B, N, D]
+    if dtype == torch.bfloat16 and patch_embed_supported(images, p):
+        # Without the normalisation fold the uint8 /255 folds into the
+        # weight the same way, and there is no bias.
+        wk, bk = (w, bias0) if normalize_pixels else ((w32 / 255.0).to(dtype), None)
+        x = patch_embed(images, wk.contiguous(), bk, p)
+    else:
+        x = images.to(dtype)
+        if not normalize_pixels and images.dtype == torch.uint8:
+            x = x / 255.0
+        x = linear(patchify(x, p), w, bias0)                    # [B, N, D]
 
     B = x.shape[0]
     cls = visual.class_embedding.to(dtype)[None, None].expand(B, 1, D)
