@@ -10,7 +10,9 @@ Phases (any failure exits non-zero before the last line):
    K = 5): the int8 folded cache, per-row bounds, the carry, and bf16/fp32
    or int8 shared + live regions with a random per-sample converged length;
    ``sdpa_packed`` also at ViT-L/14's row length (N = 257, D = 1024, 16
-   heads: the preprocess path's shape); the patch-embed kernel at ViT-L/14
+   heads: the preprocess path's shape); ``fused_sdpa`` (the head-major
+   entry of the same attention core) at [B, H, N] = (8, 12, 50), (5, 8, 77,
+   causal), (32, 16, 257) and (4, 16, 512); the patch-embed kernel at ViT-L/14
    b256 and ViT-B/32 b512 shapes, odd batches, test-tiny's width 64 and a
    batch that does not start 16-byte aligned, with and without bias
    (within one bf16 ulp of the largest output, 2^-7·max|ref|);
@@ -21,10 +23,15 @@ Phases (any failure exits non-zero before the last line):
    ``generate_nucleus_sampling`` + the CLIP rerank.  Both kernels' launch
    counts must rise over this run, and fp32 beam-5 tokens through the
    kernels must equal those through the twins (a reference run with the
-   decode attention patched to the twin, here only);
+   decode attention patched to the twin, here only); then the attention
+   façade ``sdpa(q, k, v)`` once at ViT-L/14 width (b256, N = 257, 16
+   heads, bf16) with ``fused_sdpa.launches`` set to 0 just before: it must
+   launch ``fused_sdpa`` and agree with the twin within 2e-2;
 4. timings (information, not gates): beam-5 captions/s (GPT-2 + mapper in
    bf16, batch 128, 67 new tokens), ViT-B/32 embeds/s (batch 512, uint8),
-   each kernel against its twin (``sdpa_packed`` also at ViT-L/14 b256);
+   each kernel against its twin (``sdpa_packed`` at ViT-B/32 b512, the text
+   tower b5 and ViT-L/14 b256; ``fused_sdpa`` at ViT-B/32 b512 and ViT-L/14
+   b256, head-major);
 5. a ``torch.profiler`` trace of one batch of each timed workload: wall
    time, device busy time and idle share, kernel launches, and the kernels
    that take the most device time;
@@ -165,12 +172,13 @@ def cuda_ms(fn, iters: int = 20) -> float:
 def check_kernels(dev):
     """Phase 2: every kernel against its twin; returns max |Δ| per kernel."""
     from clipcap_tpu_torch.models.gpt2 import beam_mask, causal_bias
-    from clipcap_tpu_torch.ops.attention import sdpa_packed, sdpa_packed_ref
+    from clipcap_tpu_torch.ops.attention import (fused_sdpa, fused_sdpa_ref, sdpa_packed,
+                                                 sdpa_packed_ref)
     from clipcap_tpu_torch.ops.flash_decode import flash_decode, flash_decode_ref
 
     g = torch.Generator(device=dev).manual_seed(0)
     err = {"flash_decode": 0.0, "sdpa_packed": 0.0, "flash_decode_int8": 0.0,
-           "flash_decode_two_phase": 0.0}
+           "flash_decode_two_phase": 0.0, "fused_sdpa": 0.0}
 
     def compare(name, label, dtype, got, want):
         d = (got.float() - want.float()).abs().max().item()
@@ -206,10 +214,19 @@ def check_kernels(dev):
             qkv = torch.randn(B, N, 3 * D, generator=g, device=dev).to(dtype)
             compare("sdpa_packed", f"{label} B={B} N={N} D={D} causal={causal}", dtype,
                     sdpa_packed(qkv, H, causal=causal), sdpa_packed_ref(qkv, H, causal=causal))
+        for B, H, N, causal in FUSED_SHAPES:
+            q, k, v = (torch.randn(B, H, N, 64, generator=g, device=dev).to(dtype)
+                       for _ in range(3))
+            compare("fused_sdpa", f"B={B} H={H} N={N} causal={causal}", dtype,
+                    fused_sdpa(q, k, v, causal=causal), fused_sdpa_ref(q, k, v, causal=causal))
         check_kv_kernels(dev, g, dtype, compare)
     err["patch_embed"] = check_patch_embed(dev, g)
     torch.cuda.synchronize()
     return err
+
+
+# fused_sdpa's phase-2 shapes: (B, H, N, causal).
+FUSED_SHAPES = ((8, 12, 50, False), (5, 8, 77, True), (32, 16, 257, False), (4, 16, 512, False))
 
 
 # Patch-embed shapes: (batch, image side, patch, width).
@@ -386,7 +403,8 @@ def time_kernels(dev, tag: str):
     import torch.nn.functional as F
 
     from clipcap_tpu_torch.models.gpt2 import beam_mask
-    from clipcap_tpu_torch.ops.attention import sdpa_packed, sdpa_packed_ref
+    from clipcap_tpu_torch.ops.attention import (fused_sdpa, fused_sdpa_ref, sdpa_packed,
+                                                 sdpa_packed_ref)
     from clipcap_tpu_torch.ops.flash_decode import flash_decode, flash_decode_ref
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -408,7 +426,9 @@ def time_kernels(dev, tag: str):
     print(f"time [{tag}] flash_decode beam R={R} H={H} K={K} u_valid={u} bf16: "
           f"{out['flash_decode']}")
     # The row of the kernels JSON is ViT-B/32 b512 (the captioning slice);
-    # ViT-L/14 b256 (N = 257) is the preprocess path's shape.
+    # ViT-L/14 b256 (N = 257) is the preprocess path's shape.  Bound: q, k,
+    # v read and the context written once; 4·N²·D operations per sample
+    # (about half of them under causal: 4·N(N+1)/2·D).
     for B, N, D, H, causal, label, key in (
             (512, 50, 768, 12, False, "ViT-B/32 b512", "sdpa_packed"),
             (5, 77, 512, 8, True, "text tower b5", None),
@@ -419,12 +439,57 @@ def time_kernels(dev, tag: str):
              "plain_ms": cuda_ms(lambda: sdpa_packed_ref(qkv, H, causal=causal)),
              "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                  *heads, is_causal=causal)),
-             **bound(4 * B * N * D * 2, 4 * B * N * N * D, bf)}
+             **attention_bound(B, N, D, causal)}
         if key:
             out[key] = t
         print(f"time [{tag}] sdpa_packed {label} bf16: {t}")
         del qkv, heads
+    # fused_sdpa, head-major: its row is ViT-L/14 b256 (the façade's call in
+    # phase 3), ViT-B/32 b512 beside it.
+    for B, H, N, label, key in ((512, 12, 50, "ViT-B/32 b512", "fused_sdpa_vit_b32"),
+                                (256, 16, 257, "ViT-L/14 b256", "fused_sdpa")):
+        q, k, v = (torch.randn(B, H, N, 64, generator=g, device=dev).to(bf) for _ in range(3))
+        t = {"ms": cuda_ms(lambda: fused_sdpa(q, k, v)),
+             "plain_ms": cuda_ms(lambda: fused_sdpa_ref(q, k, v)),
+             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+             **attention_bound(B, N, H * 64, False)}
+        out[key] = t
+        print(f"time [{tag}] fused_sdpa {label} [{B}, {H}, {N}, 64] bf16: {t}")
+        del q, k, v
     return out
+
+
+def attention_bound(B: int, N: int, D: int, causal: bool) -> dict:
+    """Bound of one bf16 encoder-attention call over B samples of N rows and
+    D = H·64 columns."""
+    pairs = N * (N + 1) // 2 if causal else N * N
+    return bound(4 * B * N * D * 2, 4 * B * pairs * D, torch.bfloat16)
+
+
+def run_sdpa_facade(dev):
+    """Phase 3b: the JAX package's attention façade, ``sdpa(q, k, v)`` on
+    [B, N, H, Dh] bf16 at ViT-L/14 width (b256, N = 257, 16 heads), the
+    count set to 0 just before.  Returns (fused_sdpa launches, max |Δ|
+    against the twin)."""
+    from clipcap_tpu_torch.ops.attention import fused_sdpa, fused_sdpa_ref, sdpa
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    B, N, H = 256, 257, 16
+    q, k, v = (torch.randn(B, N, H, 64, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    fused_sdpa.launches = 0
+    got = sdpa(q, k, v)
+    torch.cuda.synchronize()
+    launches = fused_sdpa.launches
+    want = fused_sdpa_ref(*(t.transpose(1, 2) for t in (q, k, v))).transpose(1, 2)
+    d = (got.float() - want.reshape(B, N, H * 64).float()).abs().max().item()
+    print(f"facade: sdpa(q, k, v) [{B}, {N}, {H}, 64] bf16 -> {tuple(got.shape)}; fused_sdpa "
+          f"launches {launches}; max|d| against the twin {d:.3g} (tol {TOL[torch.bfloat16]})")
+    if launches == 0:
+        raise AssertionError("the sdpa facade never launched the fused_sdpa kernel")
+    if got.shape != (B, N, H * 64) or not d <= TOL[torch.bfloat16]:
+        raise AssertionError(f"sdpa facade: shape {tuple(got.shape)}, max|d| {d}")
+    return launches, d
 
 
 def time_kv_kernels(dev, tag: str):
@@ -1305,6 +1370,7 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
     slice_dir.mkdir()
     train_dir.mkdir()
     model, encoder, launches = run_slice(dev, slice_dir)
+    fused_launches, facade_err = run_sdpa_facade(dev)
     times = time_kernels(dev, name_limit)
     beam, beam_inputs = beam_workload(model, dev)
     beam_cps = rate(beam, beam_inputs, 128)
@@ -1340,7 +1406,7 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
         row("flash_decode", "flash_decode.cu", "clipcap_tpu/ops/flash_decode.py:407",
             launches=launches["flash_decode"], max_abs_err=errors["flash_decode"],
             **times["flash_decode"]),
-        row("sdpa_packed", "sdpa_packed.cu", "clipcap_tpu/ops/attention.py:244",
+        row("sdpa_packed", "sdpa.cu", "clipcap_tpu/ops/attention.py:244",
             launches=launches["sdpa_packed"], max_abs_err=errors["sdpa_packed"],
             **times["sdpa_packed"],
             vit_l14_b256={"launches": pre_sdpa_launches, **times["sdpa_packed_vit_l14"]}),
@@ -1351,6 +1417,9 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
             max_abs_err=errors["flash_decode_two_phase"], **xl_rows["flash_decode_two_phase"]),
         row("patch_embed", "patch_embed.cu", "clipcap_tpu/ops/patch_embed.py:112",
             max_abs_err=errors["patch_embed"], **patch_row),
+        row("fused_sdpa", "sdpa.cu", "clipcap_tpu/ops/attention.py:75",
+            launches=fused_launches, max_abs_err=max(errors["fused_sdpa"], facade_err),
+            **times["fused_sdpa"], vit_b32_b512=times["fused_sdpa_vit_b32"]),
     ]
 
 

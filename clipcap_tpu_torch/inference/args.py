@@ -6,8 +6,9 @@ from clipcap_tpu_torch.utils.argtypes import str2bool
 
 
 def add_inference_args(parser: ArgumentParser) -> ArgumentParser:
-    parser.add_argument("--model-path", type=str, default="./model.npz",
-                        help="Path to the model: an .npz checkpoint of either package.")
+    parser.add_argument("--model-path", type=str, default="./model.ckpt",
+                        help="Path to the model: an .npz checkpoint of either package, or a "
+                             "reference .ckpt/.pt state dict (converted on load).")
     parser.add_argument("--config-path", type=str, default="./model_config.yaml",
                         help="Path to the config yaml created by the training script.")
     parser.add_argument("--is-checkpoint", type=str2bool, default=False,
@@ -27,6 +28,12 @@ def add_inference_args(parser: ArgumentParser) -> ArgumentParser:
     inference.add_argument("--top-k", type=int, default=0, help="Inference settings: top_k.")
     inference.add_argument("--temperature", type=float, default=1.0,
                            help="Inference settings: temperature.")
+    inference.add_argument("--repetition-penalty", type=float, default=1.2,
+                           help="Inference settings: repetition penalty (parsed; the demo "
+                                "does not use it, as in the JAX package).")
+    inference.add_argument("--desired-sentence-length", type=int, default=50,
+                           help="Inference settings: desired sentence length (parsed; the "
+                                "demo does not use it, as in the JAX package).")
     inference.add_argument("--seed", type=int, default=0,
                            help="Sampling RNG seed (decoding is deterministic given a seed).")
     inference.add_argument("--int8-kv-cache", action="store_true",

@@ -3,11 +3,13 @@
 Counterpart of ``clipcap_tpu/models/clipcap.py``.  :class:`ClipCapModel`
 holds the reference's two submodules, ``language_model`` and
 ``transformer_mapper``, so its state dict carries the reference's key
-prefixes; :func:`load` reads the JAX package's ``.npz`` + YAML checkpoints;
+prefixes; :func:`load` reads the JAX package's ``.npz`` + YAML checkpoints
+and the reference's torch state dicts;
 :func:`clipcap_loss` is the training loss.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Optional, Tuple
 
 import torch
@@ -113,19 +115,50 @@ def init_clipcap(config: Config, lm_config: Optional[GPT2Config] = None,
 
 def load(model_path: str, config_path: str, device="cuda",
          from_checkpoint: bool = False) -> Tuple[ClipCapModel, Any]:
-    """Load a model (``.npz`` written by either package) and its YAML config
-    onto ``device``, plus the tokenizer.  ``device="cuda"`` raises when
-    CUDA is absent."""
+    """Load a model and its YAML config onto ``device``, plus the tokenizer,
+    as the JAX package's ``load``: an ``.npz`` written by either package,
+    or a reference PyTorch state dict (``.pt``, ``.ckpt``, ``.bin``,
+    ``.safetensors``) converted on the fly, so that mappers trained by the
+    original ClipCap can be served.  ``device="cuda"`` raises when CUDA is
+    absent."""
     from clipcap_tpu_torch.config import load_yaml_config
     from clipcap_tpu_torch.utils.tokenizer import get_tokenizer
-    from clipcap_tpu_torch.train.checkpoint import restore_params
 
     dev = resolve_device(device)
     config = load_yaml_config(config_path)
     if from_checkpoint:
         config.training_config = None
-    model = model_from_params(config, restore_params(model_path))
+    if model_path.endswith(".npz"):
+        from clipcap_tpu_torch.train.checkpoint import restore_params
+
+        model = model_from_params(config, restore_params(model_path))
+    elif model_path.endswith(".msgpack") or os.path.isdir(model_path):
+        raise NotImplementedError(f"{model_path}: msgpack and orbax checkpoints are not "
+                                  "ported (ROADMAP.md, queue A); use an .npz or a torch "
+                                  "state dict")
+    else:
+        model = _model_from_torch(config, model_path, from_checkpoint)
     return model.to(dev), get_tokenizer(config.language_model)
+
+
+def _model_from_torch(config: Config, path: str, from_checkpoint: bool) -> ClipCapModel:
+    """The reference's state dict (``transformer_mapper.*`` and, when
+    present, ``language_model.*`` in HF GPT-2 names; or a mapper-only
+    dict).  Without LM keys the LM is resolved by name, as ``init_clipcap``
+    does."""
+    from clipcap_tpu_torch.models.hf_import import gpt2_from_hf, load_gpt2, load_torch_state_dict
+    from clipcap_tpu_torch.models.mapper import mapper_from_torch
+
+    sd = load_torch_state_dict(path)
+    if from_checkpoint and "state_dict" in sd and not hasattr(sd["state_dict"], "shape"):
+        sd = sd["state_dict"]
+    lm = load_gpt2(config.language_model)
+    lm_sd = {k[len("language_model."):]: v for k, v in sd.items()
+             if k.startswith("language_model.")}
+    if lm_sd:
+        lm = gpt2_from_hf(lm_sd, lm.config)
+    mapper = mapper_from_torch(sd, build_mapper_config(config, lm.config.n_embd))
+    return ClipCapModel(config, lm, mapper)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""GPT-2 weights from HF checkpoints already on disk.
+"""GPT-2 weights from HF checkpoints already on disk, and torch state dicts.
 
-Counterpart of ``clipcap_tpu/models/hf_import.py::load_gpt2``.  The port's
+Counterpart of ``clipcap_tpu/models/hf_import.py::load_gpt2`` and
+``load_torch_state_dict``.  The port's
 :class:`~clipcap_tpu_torch.models.gpt2.GPT2` keeps HF ``GPT2Model`` keys,
 so an HF state dict loads as it is, less the ``transformer.`` prefix, the
 tied ``lm_head`` and the attention-mask buffers.  Nothing here fetches:
@@ -45,12 +46,23 @@ def gpt2_from_hf(state_dict: Mapping[str, torch.Tensor], cfg: GPT2Config) -> GPT
     return model
 
 
-def _load_state_dict(path: str) -> dict:
+def load_torch_state_dict(path: str) -> dict:
+    """A ``.pt`` / ``.ckpt`` / ``.bin`` torch state dict or a
+    ``.safetensors`` file, on the CPU; a dict whose first entry is not a
+    tensor (a PyTorch Lightning checkpoint) is unwrapped to its
+    ``"state_dict"``, as ``clipcap_tpu.models.hf_import.load_torch_state_dict``
+    does.  Pickled files are read with ``weights_only=True``: tensors,
+    containers and plain values load; a file that pickles other objects
+    raises torch's error instead of running its code."""
     if path.endswith(".safetensors"):
         from safetensors.torch import load_file
 
         return load_file(path)
-    return torch.load(path, map_location="cpu", weights_only=True)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd and not hasattr(next(iter(sd.values())),
+                                                                   "shape"):
+        sd = sd["state_dict"]
+    return dict(sd)
 
 
 def load_gpt2(name_or_path: str) -> GPT2:
@@ -67,7 +79,7 @@ def load_gpt2(name_or_path: str) -> GPT2:
         for fname in ("model.safetensors", "pytorch_model.bin"):
             path = os.path.join(name_or_path, fname)
             if os.path.exists(path):
-                return gpt2_from_hf(_load_state_dict(path), cfg)
+                return gpt2_from_hf(load_torch_state_dict(path), cfg)
         raise FileNotFoundError(f"no weights file in {name_or_path}")
 
     if name_or_path == "gpt2-test":          # test preset: no pretrained weights

@@ -5,8 +5,8 @@ Counterpart of ``clipcap_tpu/models/mapper.py``: the reference's
 under the reference's state-dict keys (``linear``, ``prefix_const``,
 ``transformer.layers.{i}.norm1`` / ``attn.to_queries`` / ``attn.to_keys_values``
 / ``attn.project`` / ``norm2`` / ``mlp.fc1`` / ``mlp.fc2``, optional
-``pos_embeddings``), so ``clipcap_tpu.models.mapper.mapper_params_from_torch``
-reads the state dict.
+``pos_embeddings``), so a state dict of the reference's mapper loads as it
+is (:func:`mapper_from_torch`).
 """
 from __future__ import annotations
 
@@ -172,3 +172,21 @@ def mapper_apply(mapper: TransformerMapper, embedding, *, dtype=torch.float32) -
     for layer in mapper.transformer.layers:
         x = _mapper_block(x, layer, cfg)
     return x[:, cfg.n_proj_tokens:]
+
+
+def mapper_from_torch(state_dict, cfg: MapperConfig,
+                      prefix: str = "transformer_mapper.") -> TransformerMapper:
+    """A mapper from a reference ``TransformerMapper(Windowed)`` state dict:
+    the keys under ``prefix`` (a whole ClipCap model's dict), else the dict
+    as it is (a mapper-only dict).  Counterpart of
+    ``clipcap_tpu.models.mapper.mapper_params_from_torch``; the port's
+    module has the reference's keys and ``[out, in]`` layout, so the
+    tensors load unchanged (fp32)."""
+    sd = {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)}
+    if not sd:
+        sd = dict(state_dict)
+    mapper = TransformerMapper(cfg)
+    want = mapper.state_dict().keys()
+    mapper.load_state_dict({k: torch.as_tensor(v).detach().float().cpu()
+                            for k, v in sd.items() if k in want})
+    return mapper

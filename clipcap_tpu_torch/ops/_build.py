@@ -46,6 +46,8 @@ SIGNATURES = {
     + [_I, _I, _P, _I, _P, _I, _P] + [_I] * 4 + [_F, _P],
     # qkv, out, B, N, H, causal, dtype, scale, stream
     "clipcap_sdpa_packed": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, out, B, H, N, causal, dtype, scale, stream
+    "clipcap_fused_sdpa": [_P] * 4 + [_I] * 5 + [_F, _P],
     # table, n, total, lr, b1, b2, eps, wd, bc1, bc2, stream
     "clipcap_fused_adamw": [_P, _I, _L, _F, _F, _F, _F, _F, _F, _F, _P],
     # img, w, bias (or NULL), out, B, H, W, P, D, stream

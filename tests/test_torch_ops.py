@@ -104,7 +104,7 @@ def test_sdpa_unfused_matches_jax():
     for kw in ({"causal": True}, {"bias": bias}):
         want = jattn.sdpa(*map(jnp.asarray, (q, k, v)), fused=False,
                           **{n: jnp.asarray(a) if n == "bias" else a for n, a in kw.items()})
-        got = attention.sdpa(_t(q), _t(k), _t(v),
+        got = attention.sdpa(_t(q), _t(k), _t(v), fused=False,
                              **{n: _t(a) if n == "bias" else a for n, a in kw.items()})
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 

@@ -23,7 +23,8 @@ from clipcap_tpu.models.gpt2 import GPT2_PRESETS
 from clipcap_tpu.train.checkpoint import save_params as jsave_params
 from clipcap_tpu_torch.inference import generate as tgen
 from clipcap_tpu_torch.models import clipcap as tclipcap
-from clipcap_tpu_torch.ops.attention import sdpa_packed, sdpa_packed_ref
+from clipcap_tpu_torch.ops.attention import (fused_sdpa, fused_sdpa_ref, sdpa, sdpa_packed,
+                                             sdpa_packed_ref)
 from clipcap_tpu_torch.ops.flash_decode import flash_decode, flash_decode_ref
 
 torch.set_num_threads(1)
@@ -206,3 +207,37 @@ def test_sdpa_packed_kernel_matches_twin(cuda, dtype, B, N, H, causal):
     got = sdpa_packed(qkv, H, causal=causal)
     want = sdpa_packed_ref(qkv, H, causal=causal)
     torch.testing.assert_close(got.float(), want.float(), atol=KERNEL_TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,N,causal", [(8, 12, 50, False), (5, 8, 77, True),
+                                          (4, 16, 257, False), (2, 16, 512, False),
+                                          (2, 4, 130, True)])
+def test_fused_sdpa_kernel_matches_twin(cuda, dtype, B, H, N, causal):
+    g = torch.Generator(device=cuda).manual_seed(N)
+    q, k, v = (torch.randn(B, H, N, 64, generator=g, device=cuda).to(dtype) for _ in range(3))
+    before = fused_sdpa.launches
+    got = fused_sdpa(q, k, v, causal=causal)
+    assert fused_sdpa.launches == before + 1
+    want = fused_sdpa_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=KERNEL_TOL[dtype], rtol=0)
+    # The façade: [B, N, H, Dh] in, one launch, the context as [B, N, H·Dh].
+    qn, kn, vn = (t.transpose(1, 2) for t in (q, k, v))
+    got = sdpa(qn, kn, vn, causal=causal)
+    assert fused_sdpa.launches == before + 2
+    torch.testing.assert_close(got.float(), want.transpose(1, 2).reshape(B, N, H * 64).float(),
+                               atol=KERNEL_TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+def test_fused_sdpa_kernel_raises_on_what_it_cannot_take(cuda):
+    q = torch.zeros(1, 2, 10, 32, device=cuda)
+    with pytest.raises(ValueError, match="Dh=64"):
+        fused_sdpa(q, q, q)
+    q = torch.zeros(1, 2, 10, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        fused_sdpa(q, q, q)
+    q = torch.zeros(1, 10, 2, 64, device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_sdpa(q, q, q)
