@@ -15,7 +15,13 @@ Phases (any failure exits non-zero before the last line):
    causal), (32, 16, 257) and (4, 16, 512); the patch-embed kernel at ViT-L/14
    b256 and ViT-B/32 b512 shapes, odd batches, test-tiny's width 64 and a
    batch that does not start 16-byte aligned, with and without bias
-   (within one bf16 ulp of the largest output, 2^-7·max|ref|);
+   (within one bf16 ulp of the largest output, 2^-7·max|ref|); the
+   manual-pipeline decode kernel (ring depth S = 2 and 3) on the strided
+   and the tile-major cache, and the auto kernel on the tile-major cache,
+   at beam R = 128 (H = 12, K = 5, U = 384, u = 64), sampling R = 160
+   (K = 1, U = 80, u = 80: the kernel's 64-slot tiles straddle the
+   layout's) and GPT-2 XL R = 96 (H = 25), at the decode loops' masks and
+   at the u_valid boundaries of both kinds of tile;
 3. the captioning slice at full width (CLIP ViT-B/32, the 8-layer
    transformer mapper, GPT-2 124M) with seeded weights, through the public
    entry points: save an ``.npz`` + YAML, ``load(..., device="cuda")``,
@@ -61,7 +67,15 @@ Phases (any failure exits non-zero before the last line):
    caches) must launch both new kernels.  Information: captions/s and peak
    device memory of (bf16|int8, C=0|8) at b96 bf16, a ``torch.profiler``
    breakdown of the (int8, C=0) batch, each new kernel against its twin
-   and its bound;
+   and its bound.  Then the decode forms: fp32 R = 4 tokens at C = 0 must
+   be equal through the strided cache and the auto kernel, the tile-major
+   cache (``tm``), the manual-pipeline kernel (``man``) and both
+   (``mantm``); at b96 bf16 each form runs with its counts set to 0 just
+   before (the manual forms must launch the manual kernel, the others
+   must not), with captions/s and peak memory as information; and the
+   manual kernel (S = 2, 3) beside the auto kernel, on both layouts, the
+   twin and SDPA on the strided view, at R = 128 and R = 96, with the
+   bound;
 8. the preprocess stage at CLIP ViT-L/14 (seeded weights) through
    ``clipcap_tpu_torch.preprocess``'s entry point, batch 256, on 1,024
    seeded noise JPEGs of two sizes with ``.txt`` captions in two output
@@ -76,7 +90,16 @@ Phases (any failure exits non-zero before the last line):
    the encoder build, the runner's split, ViT-L/14 b256 embeds/s with the kernel and
    with the twin, a ``torch.profiler`` breakdown of one batch, and the
    patch kernel against its twin, ``F.conv2d`` and the eager route at both
-   shapes.
+   shapes;
+9. the eval stage through ``clipcap_tpu_torch.eval.base.run_eval(argv)``
+   on the phase-3 checkpoint: 64 seeded JPEGs, a seeded reference CSV of
+   five captions each, batches of 32 x 5 candidates, bf16, with
+   ``CLIPCAP_CACHE_TILE_MAJOR=1`` and ``CLIPCAP_FLASH_MANUAL=1`` and every
+   count set to 0 just before.  Gates: exit 0, one prediction per image,
+   every metric present and finite, the manual kernel and
+   ``sdpa_packed`` launched; then fp32 ``--top-k 1`` predictions equal
+   with the two switches on and off.  Information: generation samples/s
+   and scoring seconds.
 
 Every kernel's row carries its bound (bytes over 3.35 TB/s or operations
 over the data sheet's peak, whichever is larger) and the time of one
@@ -92,6 +115,7 @@ os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
 
 import contextlib  # noqa: E402
 import copy  # noqa: E402
+import gc  # noqa: E402
 import io  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
@@ -178,7 +202,8 @@ def check_kernels(dev):
 
     g = torch.Generator(device=dev).manual_seed(0)
     err = {"flash_decode": 0.0, "sdpa_packed": 0.0, "flash_decode_int8": 0.0,
-           "flash_decode_two_phase": 0.0, "fused_sdpa": 0.0}
+           "flash_decode_two_phase": 0.0, "fused_sdpa": 0.0, "flash_decode_manual": 0.0,
+           "flash_decode_tile_major": 0.0}
 
     def compare(name, label, dtype, got, want):
         d = (got.float() - want.float()).abs().max().item()
@@ -220,9 +245,61 @@ def check_kernels(dev):
             compare("fused_sdpa", f"B={B} H={H} N={N} causal={causal}", dtype,
                     fused_sdpa(q, k, v, causal=causal), fused_sdpa_ref(q, k, v, causal=causal))
         check_kv_kernels(dev, g, dtype, compare)
+        check_manual_kernels(dev, g, dtype, compare)
     err["patch_embed"] = check_patch_embed(dev, g)
     torch.cuda.synchronize()
     return err
+
+
+def tile_major(kv, u: int):
+    """A strided cache [R, H, U, 128] as the tile-major [R, U // u, H, u, 128]."""
+    R, H, U, D2 = kv.shape
+    return kv.reshape(R, H, U // u, u, D2).permute(0, 2, 1, 3, 4).contiguous()
+
+
+# The manual-pipeline kernel's phase-2 shapes: (label, R, H, K, U, u); the
+# u-tile is the JAX package's (``_pick_u_tile``): 64 for the beam caches, one
+# 80-slot tile for sampling, where the kernel's 64-slot tiles straddle it.
+MANUAL_SHAPES = (("beam", 128, 12, K, 384, 64), ("sample", 160, 12, 1, 80, 80),
+                 ("XL beam", XL_BATCH, XL_HEADS, K, 384, 64))
+
+
+def check_manual_kernels(dev, g, dtype, compare):
+    """Phase 2, the manual-pipeline kernel (ring depth S = 2 and 3) and the
+    auto kernel's tile-major form against the twin, on the strided and the
+    tile-major cache, at the decode loops' masks and at the u_valid
+    boundaries of the kernel's 64-slot tiles and of the layout's tiles."""
+    from clipcap_tpu_torch.models.gpt2 import beam_mask, causal_bias
+    from clipcap_tpu_torch.ops.flash_decode import _pick_u_tile, flash_decode, flash_decode_ref
+
+    for label, R, H, Kq, U, u in MANUAL_SHAPES:
+        assert _pick_u_tile(U) == u
+        q = torch.randn(R, H, Kq, 64, generator=g, device=dev).to(dtype)
+        kv = torch.randn(R, H, U, 128, generator=g, device=dev).to(dtype)
+        layouts = (("strided", kv), ("tile-major", tile_major(kv, u)))
+        cases = []
+        if Kq == 1:
+            for pos in (P, 40, P + N_NEW - 1):
+                cases.append((pos + 1, causal_bias(1, U, pos, device=dev)[:, 0]))
+        else:
+            anc = torch.randint(0, Kq, (R * Kq, N_NEW), generator=g, device=dev)
+            for step in (0, 1, 30, N_NEW - 1):
+                cases.append((P + (step + 1) * Kq,
+                              beam_mask(anc, Kq, U, offset=P + step, cache_base=P)))
+        rand = torch.where(torch.rand(R, Kq, U, generator=g, device=dev) < 0.5, 0.0, -1e9)
+        rand[..., 0] = 0.0
+        cases += [(b, rand) for b in (1, 63, 64, 65, u - 1, u + 1, U) if 0 < b <= U]
+        for u_valid, mask in cases:
+            for form, kvx in layouts:
+                want = flash_decode_ref(q, kvx, mask, u_valid)
+                shape = f"{label} R={R} H={H} K={Kq} U={U} u={u} {form} u_valid={u_valid}"
+                for slots in ("2", "3"):
+                    with mock.patch.dict(os.environ, {"CLIPCAP_FLASH_MANUAL_SLOTS": slots}):
+                        got = flash_decode(q, kvx, mask, u_valid, manual=True)
+                    compare("flash_decode_manual", f"{shape} S={slots}", dtype, got, want)
+                if form == "tile-major":
+                    compare("flash_decode_tile_major", shape, dtype,
+                            flash_decode(q, kvx, mask, u_valid, manual=False), want)
 
 
 # fused_sdpa's phase-2 shapes: (B, H, N, causal).
@@ -730,6 +807,19 @@ def profile(work, x, batch_ms: float, label: str, tag: str, top: int = 8):
     for e in sorted(kernels, key=device_us, reverse=True)[:top]:
         print(f"profile [{tag}] {label}:   {device_us(e) / 1e3:8.2f} ms {e.count:6d}x "
               f"{e.key[:90]}")
+    del kernels, prof
+    gc.collect()                  # the trace's events hold reference cycles
+
+
+def host_memory() -> str:
+    """The process's resident and peak host memory, from /proc/self/status
+    (the machine's memory limit counts the files the run writes too)."""
+    status = Path("/proc/self/status")
+    if not status.exists():
+        return "host memory not reported"
+    fields = dict(line.split(":", 1) for line in status.read_text().splitlines() if ":" in line)
+    return (f"host memory: resident {fields.get('VmRSS', '?').strip()}, peak "
+            f"{fields.get('VmHWM', '?').strip()}")
 
 
 def sync(dev) -> None:
@@ -1005,6 +1095,17 @@ def seeded_xl(dev):
     return model
 
 
+# The decode forms of phase 7: (tile-major cache, manual-pipeline kernel).
+FORMS = {"strided": (False, False), "tm": (True, False), "man": (False, True),
+         "mantm": (True, True)}
+
+
+def decode_form(form: str):
+    """The environment of a decode form: ``CLIPCAP_FLASH_MANUAL`` as the
+    form says (the cache layout goes through ``BeamParams.tile_major``)."""
+    return mock.patch.dict(os.environ, {"CLIPCAP_FLASH_MANUAL": "1" if FORMS[form][1] else "0"})
+
+
 def agreement(a, b) -> str:
     """How far two beam results' tokens agree."""
     same = (a.tokens == b.tokens).all(dim=-1)
@@ -1046,12 +1147,13 @@ def xl_gates(model, dev):
             return got
         return call
 
-    def run(int8: bool, C: int, mode: str = "kernel", x=prefix):
+    def run(int8: bool, C: int, mode: str = "kernel", x=prefix, form: str = "strided"):
         bp = BeamParams(beam_size=K, max_new_tokens=N_NEW, stop_token=50256, int8_kv=int8,
-                        consolidate_every=C)
+                        consolidate_every=C, tile_major=FORMS[form][0])
         n0 = flash_decode.launches + flash_decode_two_phase.launches
         diffs = []
         with contextlib.ExitStack() as patches:
+            patches.enter_context(decode_form(form))
             for name, kernel, twin in (("flash_decode", flash_decode, flash_decode_ref),
                                        ("flash_decode_two_phase", flash_decode_two_phase,
                                         flash_decode_two_phase_ref)):
@@ -1071,6 +1173,19 @@ def xl_gates(model, dev):
         return res
 
     bf_c0, bf_c8 = run(False, 0), run(False, 8)
+    # The decode forms at C = 0: the strided cache through the auto kernel
+    # (bf_c0), the tile-major cache, the manual-pipeline kernel, both.
+    for form in ("tm", "man", "mantm"):
+        n0 = flash_decode.manual_launches
+        res = run(False, 0, form=form)
+        manual = flash_decode.manual_launches - n0
+        same = torch.equal(res.tokens, bf_c0.tokens)
+        print(f"xl: fp32 R=4 C=0 form {form} vs strided/auto: {agreement(res, bf_c0)}; max|d "
+              f"score| {(res.scores - bf_c0.scores).abs().max().item():.3g}; manual-pipeline "
+              f"launches {manual}")
+        if not same or (manual > 0) != FORMS[form][1]:
+            raise AssertionError(f"xl fp32 form {form}: tokens equal {same}, {manual} manual "
+                                 "launches")
     for label, a, b in (("C=8 kernels vs twins", bf_c8, run(False, 8, "twin")),
                         ("C=8 vs C=0", bf_c8, bf_c0)):
         same = torch.equal(a.tokens, b.tokens)
@@ -1180,9 +1295,109 @@ def run_xl(dev, slice_dir: Path, tag: str):
         if (int8, C) == (True, 0):
             profile(work, inputs[0], XL_BATCH * 1e3 / medians[int8, C],
                     f"beam-5 GPT-2 XL b{XL_BATCH} int8 C=0", tag)
+    form_launches = xl_forms(lm, prefix, tag)
     times = time_kv_kernels(dev, tag)
+    times.update(time_manual_kernels(dev, tag))
     print(f"xl: phase took {time.perf_counter() - t_phase:.1f} s")
-    return {name: {"launches": launches[name], **times[name]} for name in launches}
+    rows = {name: {"launches": launches[name], **times[name]} for name in launches}
+    rows["flash_decode_tile_major"] = {"launches": form_launches["tm"],
+                                       **times["flash_decode_tile_major"]}
+    rows["flash_decode_manual"] = dict(times["flash_decode_manual"],
+                                       xl_b96_launches={f: form_launches[f]
+                                                        for f in ("man", "mantm")})
+    return rows
+
+
+def xl_forms(lm, prefix, tag: str):
+    """Phase 7e: beam 5 at b96 bf16 in the four decode forms: the strided
+    cache through the auto kernel, the tile-major cache (``tm``), the
+    manual-pipeline kernel (``man``) and both (``mantm``).  Each form's
+    first batch is a path of its own: the counts are set to 0 just before
+    and read just after; the manual forms must launch only the manual
+    kernel, the others never.  Then one batch of each form in turns,
+    forward and back (host-bound rates drift within a call), for
+    captions/s and peak memory.  Returns each form's launches (of the
+    manual kernel in the manual forms, of the auto kernel otherwise)."""
+    from clipcap_tpu_torch.inference.beam import BeamParams, beam_search_batched
+    from clipcap_tpu_torch.ops.flash_decode import flash_decode
+
+    def work(form):
+        bp = BeamParams(beam_size=K, max_new_tokens=N_NEW, stop_token=50256,
+                        tile_major=FORMS[form][0])
+        with decode_form(form):
+            beam_search_batched(lm, prefix, bp, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+
+    out = {}
+    for form in FORMS:
+        flash_decode.launches = flash_decode.manual_launches = 0
+        work(form)
+        launches, manual = flash_decode.launches, flash_decode.manual_launches
+        out[form] = manual if FORMS[form][1] else launches
+        if launches == 0 or manual != (launches if FORMS[form][1] else 0):
+            raise AssertionError(f"xl form {form}: {launches} launches, {manual} manual")
+    rates = {form: [] for form in FORMS}
+    peak = dict.fromkeys(FORMS, 0)
+    for form in [*FORMS, *reversed(FORMS)]:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        work(form)
+        rates[form].append(XL_BATCH / (time.perf_counter() - t0))
+        peak[form] = max(peak[form], torch.cuda.max_memory_allocated())
+    for form in FORMS:
+        print(f"time [{tag}] beam-5 GPT-2 XL b{XL_BATCH} bf16 C=0 form {form}: captions/s per "
+              f"trial {rates[form]} (in turns: strided, tm, man, mantm, then back); median "
+              f"{statistics.median(rates[form]):.2f}; peak device memory "
+              f"{peak[form] / 2**30:.2f} GiB; launches of the path {out[form]}")
+    return out
+
+
+def time_manual_kernels(dev, tag: str):
+    """Phase 7f: the manual-pipeline kernel (S = 2 and 3, strided and
+    tile-major) beside the auto kernel (row 1, strided and tile-major), the
+    twin and ``F.scaled_dot_product_attention`` on the strided view, at
+    beam step 40 of GPT-2 b128 (H = 12) and GPT-2 XL b96 (H = 25), bf16,
+    u_valid 215 of 384 slots; and each bound.  The kernels JSON rows are
+    R = 128 S = 2 strided (the manual kernel) and R = 128 tile-major (the
+    auto kernel's tile-major form), with the rest beside them."""
+    import torch.nn.functional as F
+
+    from clipcap_tpu_torch.models.gpt2 import beam_mask
+    from clipcap_tpu_torch.ops.flash_decode import flash_decode, flash_decode_ref
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    bf, step, U, u_tile = torch.bfloat16, 40, 384, 64
+    manual_row, tm_row = {}, {}
+    for R, H, key in ((128, 12, "r128"), (XL_BATCH, XL_HEADS, "xl_r96")):
+        q = torch.randn(R, H, K, 64, generator=g, device=dev).to(bf)
+        kv = torch.randn(R, H, U, 128, generator=g, device=dev).to(bf)
+        kv5 = tile_major(kv, u_tile)
+        anc = torch.randint(0, K, (R * K, N_NEW), generator=g, device=dev)
+        mask = beam_mask(anc, K, U, offset=P + step, cache_base=P)
+        u = P + (step + 1) * K
+        lib_mask = mask[:, None, :, :u].to(bf)
+        t = {"auto_strided_ms": cuda_ms(lambda: flash_decode(q, kv, mask, u, manual=False)),
+             "auto_tile_major_ms": cuda_ms(lambda: flash_decode(q, kv5, mask, u, manual=False))}
+        for slots in ("2", "3"):
+            with mock.patch.dict(os.environ, {"CLIPCAP_FLASH_MANUAL_SLOTS": slots}):
+                for form, kvx in (("strided", kv), ("tile_major", kv5)):
+                    t[f"manual_S{slots}_{form}_ms"] = cuda_ms(
+                        lambda: flash_decode(q, kvx, mask, u, manual=True))
+        t["plain_ms"] = cuda_ms(lambda: flash_decode_ref(q, kv, mask, u))
+        t["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, kv[:, :, :u, :64], kv[:, :, :u, 64:], attn_mask=lib_mask))
+        t.update(decode_bound(q, [(R * u, 256, R * u)], bf))
+        print(f"time [{tag}] flash_decode forms beam R={R} H={H} K={K} u_valid={u} of {U} "
+              f"bf16: {t}")
+        common = {k: t[k] for k in ("plain_ms", "library_ms", "bound_ms", "bound_by")}
+        manual = {"ms": t["manual_S2_strided_ms"], **common,
+                  **{k: t[k] for k in t if k.startswith(("manual", "auto"))}}
+        tm = {"ms": t["auto_tile_major_ms"], **common, "auto_strided_ms": t["auto_strided_ms"]}
+        if key == "r128":
+            manual_row, tm_row = manual, tm
+        else:
+            manual_row[key], tm_row[key] = manual, tm
+    return {"flash_decode_manual": manual_row, "flash_decode_tile_major": tm_row}
 
 
 PRE_FILES, PRE_WDS, PRE_BATCH, PRE_DIM, PRE_VARIANT = 1024, 256, 256, 768, "ViT-L_14"
@@ -1364,8 +1579,131 @@ def run_preprocess(dev, workdir: Path, tag: str):
     return {"launches": launches["patch_embed"], **times}, launches["sdpa_packed"]
 
 
+EVAL_IMAGES, EVAL_BATCH, EVAL_METRICS = 64, 32, ("Bleu_1", "Bleu_4", "METEOR", "ROUGE_L",
+                                                   "CIDEr", "SPICE", "SPIDEr")
+SWITCHES_ON = {"CLIPCAP_CACHE_TILE_MAJOR": "1", "CLIPCAP_FLASH_MANUAL": "1"}
+SWITCHES_OFF = {"CLIPCAP_CACHE_TILE_MAJOR": "0", "CLIPCAP_FLASH_MANUAL": "0"}
+
+
+def write_eval_inputs(root: Path):
+    """Phase 9a: 64 seeded noise JPEGs (half 256x320, half 320x256) and a
+    reference CSV with five seeded captions each."""
+    import pandas as pd
+    from PIL import Image
+
+    rng = np.random.default_rng(9)
+    images = root / "images"
+    images.mkdir(parents=True)
+    words = "a man woman dog cat red blue small sits stands near on the street park".split()
+    rows = []
+    for i in range(EVAL_IMAGES):
+        shape = (256, 320, 3) if i % 2 else (320, 256, 3)
+        name = f"eval_{i:03d}.jpg"
+        Image.fromarray(rng.integers(0, 256, shape, dtype=np.uint8)).save(images / name,
+                                                                          quality=90)
+        rows.append({"file_name": name, **{f"ref_{j}": " ".join(rng.choice(words, 6))
+                                           for j in range(1, 6)}})
+    pd.DataFrame(rows).to_csv(root / "refs.csv", index=False)
+    return images, root / "refs.csv"
+
+
+def run_eval_phase(dev, slice_dir: Path, workdir: Path, tag: str):
+    """Phase 9: ``clipcap_tpu_torch.eval`` through ``base.run_eval(argv)``
+    on the phase-3 checkpoint (ViT-B/32 + 8-layer mapper + GPT-2 124M), 64
+    images, batches of 32 x 5 candidates, bf16, with the tile-major cache
+    and the manual-pipeline kernel switched on.  Gates: exit 0, one
+    prediction per image, every metric present and finite, the manual
+    kernel and ``sdpa_packed`` launched; then two fp32 ``--top-k 1``
+    generations, the switches on and off, give the same predictions.
+    Information: generation samples/s and scoring seconds.  Returns the
+    manual kernel's launches in the main run."""
+    from clipcap_tpu_torch.eval import base
+    from clipcap_tpu_torch.inference import engine
+    from clipcap_tpu_torch.ops.attention import sdpa_packed
+    from clipcap_tpu_torch.ops.flash_decode import flash_decode
+
+    t_phase = time.perf_counter()
+    images, csv = write_eval_inputs(workdir)
+    argv = ["--model-path", str(slice_dir / "model.npz"), "--config-path",
+            str(slice_dir / "config.yaml"), "--sample-path", str(images), "--reference-csv",
+            str(csv), "--csv-filename-column", "file_name", "--csv-reference-caption-columns",
+            "ref_{1..5}", "--eval-batch-size", str(EVAL_BATCH), "--number-to-generate", "5",
+            "--allow-fallback-tokenizer", "--device", str(dev)]
+    seconds = {}
+
+    def timed(fn, key):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            sync(dev)
+            seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    # The main path: every count set to 0 just before, read just after.
+    flash_decode.launches = flash_decode.manual_launches = sdpa_packed.launches = 0
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(), contextlib.redirect_stdout(_Tee(sys.stdout, log)), \
+            mock.patch.dict(os.environ, SWITCHES_ON), \
+            mock.patch.object(base, "generate_predictions",
+                              timed(base.generate_predictions, "generate")), \
+            mock.patch.object(base, "evaluate_metrics_from_lists",
+                              timed(base.evaluate_metrics_from_lists, "score")), \
+            mock.patch.object(engine, "decode", timed(engine.decode, "decode")):
+        warnings.simplefilter("ignore")               # seeded CLIP, byte tokenizer offline
+        rc = base.run_eval(argv + ["--fp-precision", "16", "--save-predictions",
+                                   str(workdir / "preds.json"), "--save-file",
+                                   str(workdir / "scores.json")])
+    sync(dev)
+    total = time.perf_counter() - t0
+    launches = {"flash_decode": flash_decode.launches,
+                "flash_decode_manual": flash_decode.manual_launches,
+                "sdpa_packed": sdpa_packed.launches}
+    preds = json.loads((workdir / "preds.json").read_text())
+    scores = json.loads((workdir / "scores.json").read_text())
+    gen, dec = seconds.get("generate", 0.0), seconds.get("decode", 0.0)
+    print(f"eval: exit {rc} in {total:.1f} s; generation {gen:.2f} s for {EVAL_IMAGES} images x 5 "
+          f"candidates ({EVAL_IMAGES / max(gen, 1e-9):.1f} samples/s, model and encoder build "
+          f"included), of which the decode calls {dec:.2f} s ({EVAL_IMAGES / max(dec, 1e-9):.1f} "
+          f"samples/s); scoring {seconds.get('score', 0.0):.2f} s; launches {launches}")
+    from clipcap_tpu_torch import native
+
+    print(f"eval: scores {({k: scores.get(k) for k in EVAL_METRICS})}; METEOR and PTB "
+          f"tokenizer {'native C++ core' if native._lib is not None else 'Python scorers'}")
+    if rc != 0 or sorted(preds) != sorted(p.name for p in images.iterdir()):
+        raise AssertionError(f"eval: exit {rc}, {len(preds)} predictions")
+    if not all(isinstance(v, str) for v in preds.values()):
+        raise AssertionError("eval: a prediction is not a caption")
+    bad = [k for k in EVAL_METRICS if not isinstance(scores.get(k), (int, float))
+           or not math.isfinite(scores[k])]
+    if bad:
+        raise AssertionError(f"eval: metrics missing or not finite: {bad}")
+    if launches["flash_decode_manual"] == 0 or launches["sdpa_packed"] == 0:
+        raise AssertionError(f"eval: launches {launches}")
+
+    # fp32 top-k 1: the argmax path, so the switches must not move a token.
+    runs = {}
+    for label, env in (("on", SWITCHES_ON), ("off", SWITCHES_OFF)):
+        n0 = flash_decode.manual_launches
+        with warnings.catch_warnings(), contextlib.redirect_stdout(io.StringIO()), \
+                mock.patch.dict(os.environ, env):
+            warnings.simplefilter("ignore")
+            runs[label] = base.generate_predictions(base.build_parser().parse_args(
+                argv + ["--fp-precision", "32", "--top-k", "1"]))
+        print(f"eval: fp32 top-k 1 switches {label}: {len(runs[label])} predictions, "
+              f"{flash_decode.manual_launches - n0} manual-pipeline launches")
+    same = sum(runs["on"][k] == runs["off"].get(k) for k in runs["on"])
+    print(f"eval: fp32 top-k 1 predictions equal with the switches on and off: {same} of "
+          f"{len(runs['on'])}")
+    if runs["on"] != runs["off"] or len(runs["on"]) != EVAL_IMAGES:
+        raise AssertionError("eval: fp32 top-k 1 predictions differ between the switches")
+    print(f"eval: phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches["flash_decode_manual"]
+
+
 def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict) -> list:
-    """Phases 3-8 in ``workdir``; returns the kernels' rows."""
+    """Phases 3-9 in ``workdir``; returns the kernels' rows."""
     slice_dir, train_dir = workdir / "slice", workdir / "train"
     slice_dir.mkdir()
     train_dir.mkdir()
@@ -1390,13 +1728,26 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
             name_limit)
     profile(vit, vit_inputs[0], 512e3 / statistics.median(embeds), "ViT-B/32 b512", name_limit)
     del beam, beam_inputs, vit, vit_inputs, model, encoder
+    print(host_memory())
     adamw_row = run_training(dev, train_dir, name_limit)
+    shutil.rmtree(train_dir)          # its checkpoints: no later phase reads them
     torch.cuda.empty_cache()
+    print(host_memory())
     xl_rows = run_xl(dev, slice_dir, name_limit)
+    gc.collect()
     torch.cuda.empty_cache()
+    print(host_memory())
     pre_dir = workdir / "preprocess"
     pre_dir.mkdir()
     patch_row, pre_sdpa_launches = run_preprocess(dev, pre_dir, name_limit)
+    shutil.rmtree(pre_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(host_memory())
+    eval_dir = workdir / "eval"
+    eval_dir.mkdir()
+    manual_launches = run_eval_phase(dev, slice_dir, eval_dir, name_limit)
+    print(host_memory())
 
     def row(name, source, replaces, **numbers):
         return {"name": name, "route": "cuda", "source": f"clipcap_tpu_torch/csrc/{source}",
@@ -1420,6 +1771,12 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
         row("fused_sdpa", "sdpa.cu", "clipcap_tpu/ops/attention.py:75",
             launches=fused_launches, max_abs_err=max(errors["fused_sdpa"], facade_err),
             **times["fused_sdpa"], vit_b32_b512=times["fused_sdpa_vit_b32"]),
+        row("flash_decode_manual", "flash_decode.cu", "clipcap_tpu/ops/flash_decode.py:576",
+            launches=manual_launches, max_abs_err=errors["flash_decode_manual"],
+            **xl_rows["flash_decode_manual"]),
+        row("flash_decode_tile_major", "flash_decode.cu", "clipcap_tpu/ops/flash_decode.py:310",
+            max_abs_err=errors["flash_decode_tile_major"],
+            **xl_rows["flash_decode_tile_major"]),
     ]
 
 

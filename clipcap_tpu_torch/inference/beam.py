@@ -17,6 +17,9 @@ prefix K/V is stored once per sample at the head of the beam cache (the
 folded prefix, the default) or replicated per beam (``fold_prefix=False``).
 
 ``int8_kv`` stores every cache as int8 rows with per-slot scales.
+``tile_major`` (None: env ``CLIPCAP_CACHE_TILE_MAJOR``) stores the folded
+or replicated bf16/fp32 beam cache tile-major (``init_kv_cache``); the
+consolidated form keeps it strided, as in the JAX package.
 ``consolidate_every`` C > 0 prefills the prefix once per sample into a
 shared cache of one slot per position, and every C steps copies there the
 generated positions on which all K beams of a sample agree (each sample's
@@ -28,7 +31,7 @@ C = 0's up to fp summation order.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -49,6 +52,7 @@ class BeamParams:
     int8_kv: bool = False          # int8 KV cache with per-slot absmax scales
     consolidate_every: int = 0     # consolidate the converged prefix every C steps
     fold_prefix: bool = True
+    tile_major: Optional[bool] = None   # tile-major beam cache; None: env CLIPCAP_CACHE_TILE_MAJOR
 
 
 class BeamResult(NamedTuple):
@@ -86,19 +90,20 @@ def beam_search_batched(lm: GPT2, prefix_embeds: Tensor, bp: BeamParams,
         shared = init_shared_kv(lm.config, R, P + N, dtype=dtype, int8=bp.int8_kv, device=dev)
         hidden0, shared = gpt2_apply(lm, inputs_embeds=pe, kv_cache=shared, cache_index=0,
                                      dtype=dtype, return_logits=False)
-        cache = init_kv_cache(lm.config, B, N, **cache_kw)
+        cache = init_kv_cache(lm.config, B, N, tile_major=False, **cache_kw)
         h_last = hidden0[:, -1]
         anc_len, base = N, P
     elif bp.fold_prefix:
         # The prefix K/V is identical across beams: one beam_size-free
         # prefill writes it once, into slots [0, P) of the beam cache.
-        cache = init_kv_cache(lm.config, B, N, prefix_slots=P, **cache_kw)
+        cache = init_kv_cache(lm.config, B, N, prefix_slots=P, tile_major=bp.tile_major,
+                              **cache_kw)
         hidden0, cache = gpt2_apply(lm, inputs_embeds=pe, kv_cache=cache, cache_index=0,
                                     dtype=dtype, return_logits=False)
         h_last = hidden0[:, -1]
         anc_len, base = N, P
     else:
-        cache = init_kv_cache(lm.config, B, P + N, **cache_kw)
+        cache = init_kv_cache(lm.config, B, P + N, tile_major=bp.tile_major, **cache_kw)
         hidden0, cache = gpt2_apply(lm, inputs_embeds=pe.repeat_interleave(K, dim=0),
                                     kv_cache=cache, cache_index=0, dtype=dtype,
                                     beam_size=K, return_logits=False)

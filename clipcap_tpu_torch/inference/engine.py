@@ -35,6 +35,7 @@ class SamplingParams:
     mode: str = "sample"                 # "greedy" | "sample" | "nucleus"
     pad_token: int = 0
     int8_kv: bool = False                # int8 KV cache with per-slot absmax scales
+    tile_major: Optional[bool] = None    # tile-major cache; None: env CLIPCAP_CACHE_TILE_MAJOR
 
 
 class DecodeResult(NamedTuple):
@@ -80,7 +81,8 @@ def decode(lm: GPT2, prefix_embeds: Tensor, generator: torch.Generator,
     B, P, D = prefix_embeds.shape
     N = sp.max_new_tokens
     dev = prefix_embeds.device
-    cache = init_kv_cache(lm.config, B, P + N, dtype=dtype, int8=sp.int8_kv, device=dev)
+    cache = init_kv_cache(lm.config, B, P + N, dtype=dtype, int8=sp.int8_kv, device=dev,
+                          tile_major=sp.tile_major)
     hidden, cache = gpt2_apply(lm, inputs_embeds=prefix_embeds.to(dtype), kv_cache=cache,
                                cache_index=0, dtype=dtype, return_logits=False)
     cur_logits = lm_logits(lm, hidden[:, -1])                       # [B, V]

@@ -18,6 +18,11 @@ dict.  The forward is :func:`gpt2_apply`, as in the JAX package:
   reorder is an ancestry mask over the slots — the cache never moves.
   With ``cache_base`` P the first P slots hold the prefix once, visible to
   every beam (the folded-prefix layout, ``init_kv_cache(prefix_slots=P)``).
+* tile-major caches (``init_kv_cache(tile_major=True)``, or env
+  ``CLIPCAP_CACHE_TILE_MAJOR=1``): the same bf16/fp32 cache stored as
+  ``[rows, slots // u, n_head, u, 2·head_dim]`` with the JAX package's
+  u-tile ``u``; writes go tile by tile, decode attention reads the layout
+  in place.
 * int8 caches (``init_kv_cache(int8=True)``): per layer a tuple of int8
   rows and per-(slot, head) fp32 absmax scales for the K and V halves
   (``_quantize_kv``); decode attention reads them through the kernel's
@@ -33,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -40,7 +46,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from clipcap_tpu_torch.ops.flash_decode import (INT8_SLOT_QUANTUM, flash_decode,
+from clipcap_tpu_torch.ops.flash_decode import (INT8_SLOT_QUANTUM, _pick_u_tile, flash_decode,
                                                 flash_decode_two_phase)
 from clipcap_tpu_torch.ops.layers import (ACTIVATIONS, Conv1D, LayerNorm, embed,
                                           empty_param, normal_init, ones_init,
@@ -205,7 +211,7 @@ def _zeros_cache(shape, n_layer: int, dtype, int8: bool, device) -> List[LayerCa
 def init_kv_cache(cfg: GPT2Config, batch: int, max_len: int,
                   dtype=torch.bfloat16, beam_size: Optional[int] = None,
                   prefix_slots: int = 0, int8: bool = False,
-                  device="cpu") -> List[LayerCache]:
+                  device="cpu", tile_major: Optional[bool] = None) -> List[LayerCache]:
     """Zeroed per-layer interleaved K|V buffers ``[rows, n_head, slots,
     2·head_dim]``.
 
@@ -216,7 +222,13 @@ def init_kv_cache(cfg: GPT2Config, batch: int, max_len: int,
     ``int8``: each layer is ``(int8 rows, sk, sv)`` with fp32 scales
     ``[rows, n_head, slots]``, and slots are padded to 128 (the JAX
     package's int8 quantum, so the masks of the two line up).
+    ``tile_major`` (None: env ``CLIPCAP_CACHE_TILE_MAJOR=1``) stores a
+    bf16/fp32 cache as ``[rows, slots // u, n_head, u, 2·head_dim]`` with
+    ``u = _pick_u_tile(slots)``, the JAX package's shape tile for tile; an
+    int8 cache stays strided, as there.
     """
+    if tile_major is None:
+        tile_major = os.environ.get("CLIPCAP_CACHE_TILE_MAJOR", "0") == "1"
     quantum = INT8_SLOT_QUANTUM if int8 else CACHE_SLOT_QUANTUM
     if prefix_slots:
         if beam_size is None:
@@ -230,6 +242,9 @@ def init_kv_cache(cfg: GPT2Config, batch: int, max_len: int,
         slots = round_up(max_len, quantum)
         rows = batch
     shape = (rows, cfg.n_head, slots, 2 * cfg.head_dim)
+    if tile_major and not int8:
+        u = _pick_u_tile(slots)
+        shape = (rows, slots // u, cfg.n_head, u, 2 * cfg.head_dim)
     return _zeros_cache(shape, cfg.n_layer, dtype, int8, device)
 
 
@@ -252,6 +267,12 @@ def _split_cache(ckv: LayerCache) -> Tuple[Tensor, Optional[Tuple[Tensor, Tensor
     return ckv, None
 
 
+def _cache_slots(ckv: LayerCache) -> int:
+    """Logical slot count of a layer's cache, strided or tile-major."""
+    rows = _split_cache(ckv)[0]
+    return rows.shape[1] * rows.shape[3] if rows.dim() == 5 else rows.shape[2]
+
+
 def consolidate_kv_cache(kv_cache: List[LayerCache], shared_kv: List[LayerCache],
                          rows: Tensor, beam_size: int, base: int = 0) -> List[LayerCache]:
     """Copy the converged beam prefix into the shared cache, in place.
@@ -268,6 +289,8 @@ def consolidate_kv_cache(kv_cache: List[LayerCache], shared_kv: List[LayerCache]
     idx = torch.arange(W, device=rows.device) * K + rows.clamp(0, K - 1)      # [R, W]
     for live, shared in zip(kv_cache, shared_kv):
         live_rows, live_scales = _split_cache(live)
+        if live_rows.dim() == 5:
+            raise ValueError("a tile-major cache does not take consolidation")
         shared_rows, shared_scales = _split_cache(shared)
         n = min(W, shared_rows.shape[2] - base)
         ix = idx[:, :n].clamp_max(live_rows.shape[2] - 1)[:, None, :]          # [R, 1, n]
@@ -293,11 +316,20 @@ def _quantize_kv(new_kv: Tensor, Dh: int) -> Tuple[Tensor, Tensor, Tensor]:
 
 def _write_kv(ckv: LayerCache, new_kv: Tensor, slot0: int) -> None:
     """Write K|V rows ``new_kv`` [R, H, S, 2·Dh] at slots ``[slot0,
-    slot0 + S)`` of a layer's cache, quantising them for an int8 cache."""
+    slot0 + S)`` of a layer's cache, quantising them for an int8 cache.  In
+    a tile-major cache the run is written in place one u-tile at a time (it
+    may straddle tiles: slot s lives at tile s // u, offset s % u)."""
     S = new_kv.shape[2]
     if isinstance(ckv, tuple):
         for dst, src in zip(ckv, _quantize_kv(new_kv, new_kv.shape[-1] // 2)):
             dst[:, :, slot0:slot0 + S] = src
+    elif ckv.dim() == 5:
+        u = ckv.shape[3]
+        s = slot0
+        while s < slot0 + S:
+            n = min(u - s % u, slot0 + S - s)
+            ckv[:, s // u, :, s % u:s % u + n] = new_kv[:, :, s - slot0:s - slot0 + n]
+            s += n
     else:
         ckv[:, :, slot0:slot0 + S] = new_kv
 
@@ -399,6 +431,9 @@ def _cached_block(x: Tensor, layer: _Block, ckv: LayerCache, cache_index: int,
             if shared is None:
                 attn = _decode_attend(q1, ckv, ancestry, base_slot + (live_index + 1) * K)
             else:
+                if _split_cache(ckv)[0].dim() == 5:
+                    raise ValueError("a tile-major cache does not take the consolidated "
+                                     "shared-prefix form (beam search pins it strided)")
                 skv, s_scales = _split_cache(shared)
                 lkv, l_scales = _split_cache(ckv)
                 attn = flash_decode_two_phase(
@@ -510,7 +545,7 @@ def gpt2_apply(model: GPT2, *, input_ids: Optional[Tensor] = None,
     dev = x.device
 
     if kv_cache is not None:
-        slots = _split_cache(kv_cache[0])[0].shape[2]
+        slots = _cache_slots(kv_cache[0])
         if S > 1 and cache_index != 0:
             raise ValueError("cached prefill (S > 1) requires cache_index == 0: "
                              "prefill attention is block-local and ignores earlier "

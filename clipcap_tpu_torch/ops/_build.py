@@ -37,8 +37,11 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     # q, kv, sk, sv, mask, out, m_in, l_in, acc_in, m_out, l_out, acc_out,
-    # lo_vec, hi_vec, R, H, K, U, Rm, lo, hi, dtype, scale, stream
-    "clipcap_flash_decode": [_P] * 14 + [_I] * 8 + [_F, _P],
+    # lo_vec, hi_vec, R, H, K, U, ut, Rm, lo, hi, dtype, scale, stream
+    "clipcap_flash_decode": [_P] * 14 + [_I] * 9 + [_F, _P],
+    # q, kv, mask, out, lo_vec, hi_vec, R, H, K, U, ut, Rm, lo, hi, slots,
+    # dtype, scale, stream
+    "clipcap_flash_decode_manual": [_P] * 6 + [_I] * 10 + [_F, _P],
     # q, skv, ssk, ssv, smask, Us, sRm, sh_hi_vec, sh_hi, lkv, lsk, lsv,
     # lmask, Ul, lRm, lv_lo_vec, lv_lo, lv_hi_vec, lv_hi, out, R, H, K,
     # dtype, scale, stream

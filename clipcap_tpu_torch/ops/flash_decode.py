@@ -26,10 +26,20 @@ costs a device-to-host copy.  The carry is ``(m, l, acc)``: the running max
 and sum ``[R, H, K]`` and the unnormalised V accumulator ``[R, H, K, Dh]``,
 all fp32 (the JAX package carries ``acc`` over both halves of the
 interleaved row; its ``[..., Dh:]`` is this one).
+
+A bf16/fp32 cache may also be tile-major, ``[R, T, H, u, 2·Dh]`` (logical
+slot ``t·u + o`` of row r and head h at ``[r, t, h, o]``, the JAX package's
+``init_kv_cache(tile_major=True)`` layout, with ``u`` from
+:func:`_pick_u_tile`); both kernels read it in place, and only the twin
+takes its logical ``[R, H, T·u, 2·Dh]`` view.  ``manual`` (default: env
+``CLIPCAP_FLASH_MANUAL=1``) takes the manual-pipeline kernel for such a
+cache with no carry: the same function, its tile walk fed by a ring of
+``CLIPCAP_FLASH_MANUAL_SLOTS`` (2 to 4, default 2) asynchronous copies.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Tuple, Union
 
 import torch
@@ -43,6 +53,50 @@ Carry = Tuple[Tensor, Tensor, Tensor]
 HEAD_DIM = 64       # the kernel's head_dim (every GPT-2 preset)
 MAX_QUERIES = 8     # the kernel's bound on K (queries per row and head)
 INT8_SLOT_QUANTUM = 128   # int8 caches hold a multiple of this many slots
+MAX_MANUAL_SLOTS = 4      # ring stages of the manual-pipeline kernel
+
+_SUBLANE = 16             # the JAX package's slot alignment of a u-tile
+
+
+def _pick_u_tile(U: int, cap: Optional[int] = None) -> int:
+    """The JAX package's u-tile of a ``U``-slot buffer (the tile of a
+    tile-major cache): the largest 16-aligned divisor of ``U`` that is at
+    most ``cap``, by default 64 or env ``CLIPCAP_FLASH_U_TILE``.  Under the
+    default cap a buffer of at most 128 slots is one tile, unless the env
+    overrides; where no divisor comes near the default cap the smallest
+    aligned divisor above it is taken, and an explicit cap below the first
+    aligned divisor takes the smallest one above the cap; ``U`` itself
+    when nothing is aligned.  The env is read at call time."""
+    env = os.environ.get("CLIPCAP_FLASH_U_TILE")
+    default = cap is None
+    if default:
+        cap = 64 if env is None else int(env)
+        if U <= 128 and env is None:
+            return U
+    best = 0
+    for t in range(_SUBLANE, min(cap, U) + 1, _SUBLANE):
+        if U % t == 0:
+            best = t
+    if (not default and best == 0) or (default and best < max(_SUBLANE, cap // 2)):
+        start = (cap // _SUBLANE + 1) * _SUBLANE
+        for t in range(start, U + 1, _SUBLANE):
+            if U % t == 0:
+                return t
+    return best if best else U
+
+
+def _logical(kv: Tensor) -> Tensor:
+    """A tile-major cache [R, T, H, u, 2·Dh] → its logical [R, H, T·u, 2·Dh]
+    view (a copy): for the twin only, the kernels read the layout itself."""
+    if kv.dim() != 5:
+        return kv
+    R, T, H, u, D2 = kv.shape
+    return kv.permute(0, 2, 1, 3, 4).reshape(R, H, T * u, D2)
+
+
+def _check_tile_major(name: str, kv: Tensor, scales, carry, return_carry: bool) -> None:
+    if kv.dim() == 5 and (scales is not None or carry is not None or return_carry):
+        _fail(name, "a tile-major cache takes no int8 scales and no carry in or out")
 
 
 # ---------------------------------------------------------------------------
@@ -106,8 +160,12 @@ def flash_decode_ref(q: Tensor, kv: Tensor, mask: Tensor, u_valid: Bound = None,
     ``[..., Dh:]``), bf16/fp32 as q or int8 rows with ``scales = (sk, sv)``
     fp32 [R, H, U]; mask: [Rm, K, U] fp32 additive, Rm ∈ {1, R}; slots
     ``[u_lo, u_valid)`` (None → 0 and U).  → [R, H, K, Dh] in q's dtype,
-    or the ``(m, l, acc)`` partials with ``return_carry``.
+    or the ``(m, l, acc)`` partials with ``return_carry``.  A tile-major
+    ``kv`` [R, T, H, u, 2·Dh] (bf16/fp32, no carry) is read through its
+    logical view.
     """
+    _check_tile_major("flash_decode", kv, scales, carry, return_carry)
+    kv = _logical(kv)
     state = _attend_ref(q, kv, mask, 0 if u_lo is None else u_lo,
                         kv.shape[2] if u_valid is None else u_valid, scales, carry)
     return state if return_carry else _normalise(q, state)
@@ -132,12 +190,21 @@ def _fail(name: str, what: str):
     raise ValueError(f"{name}: {what}")
 
 
-def _check_region(name: str, q: Tensor, kv: Tensor, mask: Tensor, scales) -> Tuple[int, int]:
-    """Validate one cache region against q → (U, Rm)."""
+def _check_region(name: str, q: Tensor, kv: Tensor, mask: Tensor, scales,
+                  tile_major: bool = False) -> Tuple[int, int, int]:
+    """Validate one cache region against q → (U, Rm, ut): ``U`` logical
+    slots, ``ut`` slots per layout tile (``U`` for the strided form; a 5-D
+    tile-major ``kv`` only where ``tile_major``)."""
     R, H, K, Dh = q.shape
-    U = kv.shape[2] if kv.dim() == 4 else -1
-    if kv.shape != (R, H, U, 2 * Dh):
-        _fail(name, f"kv{tuple(kv.shape)} does not match q{tuple(q.shape)}")
+    if tile_major and kv.dim() == 5:
+        ut = kv.shape[3]
+        U = kv.shape[1] * ut
+        if kv.shape != (R, kv.shape[1], H, ut, 2 * Dh) or ut == 0:
+            _fail(name, f"tile-major kv{tuple(kv.shape)} does not match q{tuple(q.shape)}")
+    else:
+        U = ut = kv.shape[2] if kv.dim() == 4 else -1
+        if kv.shape != (R, H, U, 2 * Dh):
+            _fail(name, f"kv{tuple(kv.shape)} does not match q{tuple(q.shape)}")
     if scales is None:
         if kv.dtype != q.dtype:
             _fail(name, f"q/kv must share bf16 or fp32, got {q.dtype}/{kv.dtype} "
@@ -160,7 +227,7 @@ def _check_region(name: str, q: Tensor, kv: Tensor, mask: Tensor, scales) -> Tup
         _fail(name, "kv must be 16-byte aligned (16-byte loads)")
     if not kv.device == mask.device == q.device:
         _fail(name, "q, kv, mask must share a device")
-    return U, Rm
+    return U, Rm, ut
 
 
 def _check_q(name: str, q: Tensor) -> None:
@@ -193,28 +260,45 @@ def _ptr(t: Optional[Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _manual_slots(name: str) -> int:
+    slots = max(2, int(os.environ.get("CLIPCAP_FLASH_MANUAL_SLOTS", 2)))
+    if slots > MAX_MANUAL_SLOTS:
+        _fail(name, f"CLIPCAP_FLASH_MANUAL_SLOTS={slots}: the kernel's ring holds 2 to "
+              f"{MAX_MANUAL_SLOTS} stages")
+    return slots
+
+
 def flash_decode(q: Tensor, kv: Tensor, mask: Tensor, u_valid: Bound = None,
                  scales: Optional[Tuple[Tensor, Tensor]] = None, u_lo: Bound = None,
-                 carry: Optional[Carry] = None, return_carry: bool = False):
+                 carry: Optional[Carry] = None, return_carry: bool = False,
+                 manual: Optional[bool] = None):
     """One decode step of masked attention over an interleaved KV cache.
 
     Arguments as :func:`flash_decode_ref`.  A CPU tensor goes to the twin;
     a CUDA tensor launches ``csrc/flash_decode.cu`` (q bf16 or fp32, the
-    cache as q or int8, Dh = 64, K ≤ 8) or raises.
+    cache as q or int8, Dh = 64, K ≤ 8) or raises.  ``manual`` (None: env
+    ``CLIPCAP_FLASH_MANUAL=1``, read at each call) takes the manual-pipeline
+    kernel where the cache is bf16/fp32 and there is no carry in or out;
+    the int8 and carry forms take the auto kernel, as in the JAX package.
     """
+    name = "flash_decode"
+    _check_tile_major(name, kv, scales, carry, return_carry)
     if q.device.type == "cpu":
         return flash_decode_ref(q, kv, mask, u_valid, scales, u_lo, carry, return_carry)
-    name = "flash_decode"
     _check_q(name, q)
-    U, Rm = _check_region(name, q, kv, mask, scales)
+    U, Rm, ut = _check_region(name, q, kv, mask, scales, tile_major=True)
     R, H, K, Dh = q.shape
     lo_ptr, lo = _bound(name, u_lo, 0, U, q)
     hi_ptr, hi = _bound(name, u_valid, U, U, q)
+    if manual is None:
+        manual = os.environ.get("CLIPCAP_FLASH_MANUAL", "0") == "1"
+    manual = manual and scales is None and carry is None and not return_carry
     if carry is not None:
         for t, shape in zip(carry, ((R, H, K), (R, H, K), (R, H, K, Dh))):
             if (t.shape != shape or t.dtype != torch.float32 or not t.is_contiguous()
                     or t.device != q.device):
                 _fail(name, "carry must be contiguous fp32 (m, l [R, H, K], acc [R, H, K, Dh])")
+    slots = _manual_slots(name) if manual else 0
     lib = _build.load_library()
     if return_carry:
         out = None
@@ -224,21 +308,29 @@ def flash_decode(q: Tensor, kv: Tensor, mask: Tensor, u_valid: Bound = None,
         state = (None, None, None)
     c_in = (None, None, None) if carry is None else carry
     sk, sv = (None, None) if scales is None else scales
+    dtype, scale = _build.DTYPE_CODES[q.dtype], 1.0 / math.sqrt(Dh)
     with torch.cuda.device(q.device):     # the launch goes to the current device
-        code = lib.clipcap_flash_decode(
-            q.data_ptr(), kv.data_ptr(), _ptr(sk), _ptr(sv), mask.data_ptr(), _ptr(out),
-            *(_ptr(t) for t in c_in), *(_ptr(t) for t in state), lo_ptr, hi_ptr,
-            R, H, K, U, Rm, lo, hi, _build.DTYPE_CODES[q.dtype], 1.0 / math.sqrt(Dh),
-            _build.stream_of(q))
+        if manual:
+            code = lib.clipcap_flash_decode_manual(
+                q.data_ptr(), kv.data_ptr(), mask.data_ptr(), out.data_ptr(), lo_ptr, hi_ptr,
+                R, H, K, U, ut, Rm, lo, hi, slots, dtype, scale, _build.stream_of(q))
+        else:
+            code = lib.clipcap_flash_decode(
+                q.data_ptr(), kv.data_ptr(), _ptr(sk), _ptr(sv), mask.data_ptr(), _ptr(out),
+                *(_ptr(t) for t in c_in), *(_ptr(t) for t in state), lo_ptr, hi_ptr,
+                R, H, K, U, ut, Rm, lo, hi, dtype, scale, _build.stream_of(q))
     _build.check(code, name)
     flash_decode.launches += 1
     if scales is not None:
         flash_decode.int8_launches += 1
+    if manual:
+        flash_decode.manual_launches += 1
     return state if return_carry else out
 
 
-flash_decode.launches = 0          # every launch of the single-phase kernel
+flash_decode.launches = 0          # every launch of the single-phase kernels
 flash_decode.int8_launches = 0     # of which over an int8 cache
+flash_decode.manual_launches = 0   # of which of the manual-pipeline kernel
 
 
 def flash_decode_two_phase(q: Tensor, shared: Tensor, shared_mask: Tensor, live: Tensor,
@@ -261,8 +353,8 @@ def flash_decode_two_phase(q: Tensor, shared: Tensor, shared_mask: Tensor, live:
                                           lv_lo, lv_valid, shared_scales, live_scales)
     name = "flash_decode_two_phase"
     _check_q(name, q)
-    Us, sRm = _check_region(name, q, shared, shared_mask, shared_scales)
-    Ul, lRm = _check_region(name, q, live, live_mask, live_scales)
+    Us, sRm, _ = _check_region(name, q, shared, shared_mask, shared_scales)
+    Ul, lRm, _ = _check_region(name, q, live, live_mask, live_scales)
     R, H, K, Dh = q.shape
     sh_ptr, sh = _bound(name, sh_valid, Us, Us, q)
     lo_ptr, lo = _bound(name, lv_lo, 0, Ul, q)

@@ -32,6 +32,8 @@ import importlib, pkgutil, sys
 import clipcap_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(clipcap_tpu_torch.__path__, "clipcap_tpu_torch.")
          if m.name.rsplit(".", 1)[-1] != "__main__"]
+assert {"clipcap_tpu_torch.eval.base", "clipcap_tpu_torch.eval.spice_parser",
+        "clipcap_tpu_torch.native.meteor", "clipcap_tpu_torch.native.ptb_tokenizer"} <= set(names)
 for name in names:
     importlib.import_module(name)
 bad = sorted(n for n in sys.modules
@@ -43,7 +45,8 @@ print("MODULES", len(names))
 
 def test_every_port_module_imports_without_the_jax_package():
     """A fresh interpreter imports every module of the port (``__main__``
-    modules aside): neither JAX nor anything of ``clipcap_tpu`` loads."""
+    modules aside; the eval stage and its native scorers among them):
+    neither JAX nor anything of ``clipcap_tpu`` loads."""
     env = dict(os.environ, PYTHONPATH=str(REPO), HF_HUB_OFFLINE="1", OMP_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
     res = subprocess.run([sys.executable, "-c", WALK], capture_output=True, text=True,
