@@ -21,7 +21,12 @@ Phases (any failure exits non-zero before the last line):
    at beam R = 128 (H = 12, K = 5, U = 384, u = 64), sampling R = 160
    (K = 1, U = 80, u = 80: the kernel's 64-slot tiles straddle the
    layout's) and GPT-2 XL R = 96 (H = 25), at the decode loops' masks and
-   at the u_valid boundaries of both kinds of tile;
+   at the u_valid boundaries of both kinds of tile; and the auto and
+   two-phase kernels at bounds that cut the bf16 kernels' 16-slot mma
+   fragments and 32-slot warp chunks (1, 15, 16, 17, 31, 33, 64, 65, 129,
+   215; host and per-row; the carry split at 100), K = 1, 5 and 8 at
+   H = 25, bf16/fp32 and int8 caches, the tile-major cache of 80-slot
+   tiles, and the four int8/bf16 region mixes;
 3. the captioning slice at full width (CLIP ViT-B/32, the 8-layer
    transformer mapper, GPT-2 124M) with seeded weights, through the public
    entry points: save an ``.npz`` + YAML, ``load(..., device="cuda")``,
@@ -103,7 +108,13 @@ Phases (any failure exits non-zero before the last line):
 
 Every kernel's row carries its bound (bytes over 3.35 TB/s or operations
 over the data sheet's peak, whichever is larger) and the time of one
-PyTorch call that computes the same function, where there is one.
+PyTorch call that computes the same function, where there is one.  Two
+clocks: ``ms`` is CUDA events around 20 back-to-back calls (``cuda_ms``:
+where a kernel is shorter than its wrapper's host time it reads the host),
+``device_ms`` the mean kernel duration per call that ``torch.profiler``
+records (``device_ms``); the decode rows (phase 4a row 1, phase 7d's int8
+and two-phase rows, phase 7f's tile-major and manual rows) give both, for
+the kernel, the twin and the library call.
 
 Output: one line per finding, then the kernels as one JSON object, then the
 card's ``name, power.limit``, then ``{"ok": true, "device": {...}}``.
@@ -193,6 +204,43 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_us(e) -> float:
+    """Device time of a profiler event (the attribute's name moved across
+    torch versions)."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def device_ms(fn, iters: int = 20):
+    """Mean device time of one ``fn()`` call: the CUPTI durations of every
+    kernel that ``torch.profiler`` records over ``iters`` calls after
+    warm-up, summed and divided by ``iters``.  Unlike ``cuda_ms`` it leaves
+    out the host's gaps between launches.  A trace that comes back without
+    device events is taken again, up to three times; None if none has any."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(device_us(e) for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        del prof
+        if total_us > 0:
+            return total_us / iters / 1e3
+    return None
+
+
+def timed(fn, prefix: str = "") -> dict:
+    """``fn``'s time on both clocks: ``<prefix>ms`` (CUDA events around
+    back-to-back calls) and ``<prefix>device_ms`` (kernel durations)."""
+    return {f"{prefix}ms": cuda_ms(fn), f"{prefix}device_ms": device_ms(fn)}
+
+
 def check_kernels(dev):
     """Phase 2: every kernel against its twin; returns max |Δ| per kernel."""
     from clipcap_tpu_torch.models.gpt2 import beam_mask, causal_bias
@@ -246,6 +294,7 @@ def check_kernels(dev):
                     fused_sdpa(q, k, v, causal=causal), fused_sdpa_ref(q, k, v, causal=causal))
         check_kv_kernels(dev, g, dtype, compare)
         check_manual_kernels(dev, g, dtype, compare)
+        check_fragment_edges(dev, g, dtype, compare)
     err["patch_embed"] = check_patch_embed(dev, g)
     torch.cuda.synchronize()
     return err
@@ -300,6 +349,80 @@ def check_manual_kernels(dev, g, dtype, compare):
                 if form == "tile-major":
                     compare("flash_decode_tile_major", shape, dtype,
                             flash_decode(q, kvx, mask, u_valid, manual=False), want)
+
+
+# Slot bounds that end inside, at and just past the 16-slot mma fragments
+# and the 32-slot warp chunks of the bf16 kernels.
+EDGES = (1, 15, 16, 17, 31, 33, 64, 65, 129, 215)
+
+
+def check_fragment_edges(dev, g, dtype, compare):
+    """Phase 2, the auto and two-phase kernels at slot bounds that cut an
+    mma fragment or a warp's chunk: K = 1, 5 and 8 queries; bf16/fp32 and
+    int8 caches at GPT-2 XL's 25 heads, host bounds and per-row ``[R]``
+    bounds, and the carry over [0, 100) resumed to the end; the tile-major
+    cache of 80-slot tiles (a fragment straddles slot 80); the four
+    int8/bf16 region mixes of the two-phase kernel with per-row edges."""
+    from clipcap_tpu_torch.ops.flash_decode import (flash_decode, flash_decode_ref,
+                                                    flash_decode_two_phase,
+                                                    flash_decode_two_phase_ref)
+
+    R, H, U = 8, XL_HEADS, 256
+    for Kq in (1, 5, 8):
+        q = torch.randn(R, H, Kq, 64, generator=g, device=dev).to(dtype)
+        mask = torch.where(torch.rand(R, Kq, U, generator=g, device=dev) < 0.5, 0.0, -1e9)
+        mask[..., 0] = 0.0
+        lo = torch.tensor([0, 1, 15, 16, 17, 31, 33, 100], dtype=torch.int32, device=dev)
+        hi = torch.tensor([1, 16, 17, 33, 64, 65, 129, 215], dtype=torch.int32, device=dev)
+        for int8 in (False, True):
+            if int8:
+                kv, scales = int8_cache(g, R, H, U, dev)
+                name = "flash_decode_int8"
+            else:
+                kv, scales = torch.randn(R, H, U, 128, generator=g, device=dev).to(dtype), None
+                name = "flash_decode"
+            label = f"edges R={R} H={H} K={Kq}"
+            for b in EDGES:
+                compare(name, f"{label} u_valid={b}", dtype,
+                        flash_decode(q, kv, mask, b, scales=scales),
+                        flash_decode_ref(q, kv, mask, b, scales=scales))
+            compare(name, f"{label} [lo, hi) u_lo=17 u_valid=215", dtype,
+                    flash_decode(q, kv, mask, 215, scales=scales, u_lo=17),
+                    flash_decode_ref(q, kv, mask, 215, scales=scales, u_lo=17))
+            compare(name, f"{label} per-row [lo, hi)", dtype,
+                    flash_decode(q, kv, mask, hi, scales=scales, u_lo=lo),
+                    flash_decode_ref(q, kv, mask, hi, scales=scales, u_lo=lo))
+            part = flash_decode(q, kv, mask, 100, scales=scales, return_carry=True)
+            part_ref = flash_decode_ref(q, kv, mask, 100, scales=scales, return_carry=True)
+            for what, a, b in zip(("m", "l"), part, part_ref):
+                d = ((a - b).abs() / b.abs().clamp_min(1.0)).max().item()
+                if not d <= 1e-4:
+                    raise AssertionError(f"{name} {label} carry {what}: max rel|d| {d}")
+            compare(name, f"{label} carry [0, 100) resumed over [100, {U})", dtype,
+                    flash_decode(q, kv, mask, U, scales=scales, u_lo=100, carry=part),
+                    flash_decode_ref(q, kv, mask, U, scales=scales))
+        kv = torch.randn(R, H, 240, 128, generator=g, device=dev).to(dtype)
+        kv5 = tile_major(kv, 80)
+        mask = mask[..., :240].contiguous()
+        for b in (1, 15, 17, 79, 81, 95, 161, 240):
+            compare("flash_decode_tile_major", f"edges R={R} H={H} K={Kq} u=80 u_valid={b}",
+                    dtype, flash_decode(q, kv5, mask, b, manual=False),
+                    flash_decode_ref(q, kv, mask, b))
+        for sh_int8, lv_int8 in ((False, False), (True, True), (True, False), (False, True)):
+            sh, sh_s = region(g, R, H, 128, dtype, sh_int8, dev)
+            lv, lv_s = region(g, R, H, 384 if lv_int8 else 336, dtype, lv_int8, dev)
+            sh_mask = mask[..., :1].expand(R, Kq, 128).contiguous()
+            lv_mask = torch.where(torch.rand(R, Kq, lv.shape[2], generator=g, device=dev) < 0.5,
+                                  0.0, -1e9)
+            c = torch.tensor([1, 15, 16, 17, 33, 64, 65, 128], dtype=torch.int32, device=dev)
+            lv_lo = torch.tensor([0, 15, 17, 1, 31, 64, 100, 0], dtype=torch.int32, device=dev)
+            lv_hi = torch.tensor([1, 17, 33, 215, 65, 129, 101, 336], dtype=torch.int32,
+                                 device=dev)
+            args = (q, sh, sh_mask, lv, lv_mask, c, lv_lo, lv_hi)
+            compare("flash_decode_two_phase",
+                    f"edges R={R} H={H} K={Kq} shared int8={sh_int8} live int8={lv_int8}",
+                    dtype, flash_decode_two_phase(*args, shared_scales=sh_s, live_scales=lv_s),
+                    flash_decode_two_phase_ref(*args, shared_scales=sh_s, live_scales=lv_s))
 
 
 # fused_sdpa's phase-2 shapes: (B, H, N, causal).
@@ -495,10 +618,10 @@ def time_kernels(dev, tag: str):
     u = P + (step + 1) * K
     lib_mask = mask[:, None, :, :u].to(bf)
     out["flash_decode"] = {
-        "ms": cuda_ms(lambda: flash_decode(q, kv, mask, u)),
-        "plain_ms": cuda_ms(lambda: flash_decode_ref(q, kv, mask, u)),
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, kv[:, :, :u, :64], kv[:, :, :u, 64:], attn_mask=lib_mask)),
+        **timed(lambda: flash_decode(q, kv, mask, u)),
+        **timed(lambda: flash_decode_ref(q, kv, mask, u), "plain_"),
+        **timed(lambda: F.scaled_dot_product_attention(
+            q, kv[:, :, :u, :64], kv[:, :, :u, 64:], attn_mask=lib_mask), "library_"),
         **decode_bound(q, [(R * u, 256, R * u)], bf)}
     print(f"time [{tag}] flash_decode beam R={R} H={H} K={K} u_valid={u} bf16: "
           f"{out['flash_decode']}")
@@ -587,8 +710,8 @@ def time_kv_kernels(dev, tag: str):
     mask = beam_mask(anc, K, U, offset=P + step, cache_base=P)
     u = P + (step + 1) * K
     out = {"flash_decode_int8": {
-        "ms": cuda_ms(lambda: flash_decode(q, rows, mask, u, scales=scales)),
-        "plain_ms": cuda_ms(lambda: flash_decode_ref(q, rows, mask, u, scales=scales)),
+        **timed(lambda: flash_decode(q, rows, mask, u, scales=scales)),
+        **timed(lambda: flash_decode_ref(q, rows, mask, u, scales=scales), "plain_"),
         "library_ms": None, **decode_bound(q, [(R * u, 136, R * u)], bf)}}
     print(f"time [{tag}] flash_decode_int8 beam R={R} H={H} K={K} u_valid={u} bf16 q: "
           f"{out['flash_decode_int8']}")
@@ -598,8 +721,8 @@ def time_kv_kernels(dev, tag: str):
         shared_slots = int((c.sum()).item())
         live_slots = int((lv_hi - lv_lo).sum().item())
         slot_bytes = 136 if int8 else 256
-        t = {"ms": cuda_ms(lambda: flash_decode_two_phase(*args, **kw)),
-             "plain_ms": cuda_ms(lambda: flash_decode_two_phase_ref(*args, **kw)),
+        t = {**timed(lambda: flash_decode_two_phase(*args, **kw)),
+             **timed(lambda: flash_decode_two_phase_ref(*args, **kw), "plain_"),
              "library_ms": None,
              **decode_bound(q, [(shared_slots, slot_bytes, shared_slots),
                                 (live_slots, slot_bytes, live_slots)], bf)}
@@ -783,9 +906,6 @@ def profile(work, x, batch_ms: float, label: str, tag: str, top: int = 8):
     kernels that take the most device time."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1376,23 +1496,27 @@ def time_manual_kernels(dev, tag: str):
         mask = beam_mask(anc, K, U, offset=P + step, cache_base=P)
         u = P + (step + 1) * K
         lib_mask = mask[:, None, :, :u].to(bf)
-        t = {"auto_strided_ms": cuda_ms(lambda: flash_decode(q, kv, mask, u, manual=False)),
-             "auto_tile_major_ms": cuda_ms(lambda: flash_decode(q, kv5, mask, u, manual=False))}
+        t = {**timed(lambda: flash_decode(q, kv, mask, u, manual=False), "auto_strided_"),
+             **timed(lambda: flash_decode(q, kv5, mask, u, manual=False), "auto_tile_major_")}
         for slots in ("2", "3"):
             with mock.patch.dict(os.environ, {"CLIPCAP_FLASH_MANUAL_SLOTS": slots}):
                 for form, kvx in (("strided", kv), ("tile_major", kv5)):
-                    t[f"manual_S{slots}_{form}_ms"] = cuda_ms(
-                        lambda: flash_decode(q, kvx, mask, u, manual=True))
-        t["plain_ms"] = cuda_ms(lambda: flash_decode_ref(q, kv, mask, u))
-        t["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, kv[:, :, :u, :64], kv[:, :, :u, 64:], attn_mask=lib_mask))
+                    t.update(timed(lambda: flash_decode(q, kvx, mask, u, manual=True),
+                                   f"manual_S{slots}_{form}_"))
+        t.update(timed(lambda: flash_decode_ref(q, kv, mask, u), "plain_"))
+        t.update(timed(lambda: F.scaled_dot_product_attention(
+            q, kv[:, :, :u, :64], kv[:, :, :u, 64:], attn_mask=lib_mask), "library_"))
         t.update(decode_bound(q, [(R * u, 256, R * u)], bf))
         print(f"time [{tag}] flash_decode forms beam R={R} H={H} K={K} u_valid={u} of {U} "
               f"bf16: {t}")
-        common = {k: t[k] for k in ("plain_ms", "library_ms", "bound_ms", "bound_by")}
-        manual = {"ms": t["manual_S2_strided_ms"], **common,
+        common = {k: t[k] for k in ("plain_ms", "plain_device_ms", "library_ms",
+                                    "library_device_ms", "bound_ms", "bound_by")}
+        manual = {"ms": t["manual_S2_strided_ms"],
+                  "device_ms": t["manual_S2_strided_device_ms"], **common,
                   **{k: t[k] for k in t if k.startswith(("manual", "auto"))}}
-        tm = {"ms": t["auto_tile_major_ms"], **common, "auto_strided_ms": t["auto_strided_ms"]}
+        tm = {"ms": t["auto_tile_major_ms"], "device_ms": t["auto_tile_major_device_ms"],
+              **common, "auto_strided_ms": t["auto_strided_ms"],
+              "auto_strided_device_ms": t["auto_strided_device_ms"]}
         if key == "r128":
             manual_row, tm_row = manual, tm
         else:

@@ -28,30 +28,55 @@
 // What bounds it on the H100: bytes.  A decode step reads each written
 // cache slot once (256 bytes per slot and head in bf16, 128 + 8 in int8)
 // to do 4*K flops per byte, far under the card's ~295 flops/byte ridge.
-// The design therefore reads each valid slot exactly once, with 16-byte
-// coalesced loads into a shared-memory tile, and never touches a slot
-// outside its row's [lo, hi): the bounds are exact per row, where the TPU
-// kernel rounds them out to whole tiles per row block and masks the slack
-// (a masked slot weighs exp(-1e9 - m) = 0 in fp32, so the two agree).
-// One thread block per (row, head) walks the slots in tiles of 64 and
-// keeps the fp32 online-softmax state (running max, sum, accumulator) on
-// chip; a segment is one walk, and the two-phase kernel walks two under
-// one launch, so its partials never leave the chip.  int8 rows stay int8
-// in shared memory and widen in registers; the k-scale multiplies the
-// logit after the dot and the v-scale the weight before the value product,
-// as the TPU kernel folds them.  Softmax weights stay fp32 (the TPU kernel
-// rounds them to q's dtype before the value product).
+// Every kernel reads each valid slot exactly once, with 16-byte coalesced
+// copies into shared memory, and never touches a slot outside its row's
+// [lo, hi): the bounds are exact per row, where the TPU kernel rounds them
+// out to whole tiles per row block and masks the slack (a masked slot
+// weighs exp(-1e9 - m) = 0 in fp32, so the two agree).  One thread block
+// per (row, head) keeps the fp32 online-softmax state (running max, sum,
+// accumulator) on chip; the two-phase kernel walks two segments under one
+// launch, so its partials never leave the chip.  The k-scale of an int8
+// slot multiplies its logit after the dot, the v-scale its weight before
+// the value product, as the TPU kernel folds them.
 //
-// The auto kernel stages a tile with loads through registers and computes
-// on it before it asks for the next, so each block waits out a full memory
-// latency per tile.  The manual kernel keeps S - 1 tiles of 16-byte
-// cp.async copies in flight while it computes (tile t + S - 1 is started
-// before tile t is computed), in a ring of S shared-memory stages; each
-// slot's 16-byte chunks are placed by an XOR swizzle so that cp.async can
-// write them aligned and both compute phases read them without bank
-// conflicts.  A 64-slot kernel tile may straddle two layout tiles of the
-// tile-major cache: every copy computes its slot's own address.  Tensor
-// cores, TMA and a split over the slot axis are later work.
+// bf16 q (flash_decode_mma_kernel: the auto kernel over a bf16 or int8
+// cache, strided or tile-major, host or per-row bounds, carry in and out;
+// and the two-phase kernel, each region bf16 or int8): tensor cores and a
+// walk without block-wide barriers.  The block's 4 warps split the slots
+// into chunks of 32, warp w taking chunks w, w + 4, ...; each warp feeds
+// its chunks through its own ring of 2 cp.async stages (the slots, the
+// chunk's mask rows and int8 scales; zero-filled past the row's bound) and
+// keeps its own online softmax in registers, synchronising with __syncwarp
+// only.  Both products are mma.sync m16n8k16 (bf16 in, fp32 accumulate).
+// q.k^T takes the K <= 8 queries as the A operand, padded to 16 rows with
+// zeros that never enter the softmax; slots past the bound get a -inf
+// logit and weigh exactly 0.  P.V runs transposed, O^T = V^T . P^T: the S
+// accumulators are P^T's B fragment as they stand, and the queries fill
+// the 8 columns of the accumulator, so none of it is padding.  The
+// weights are rounded to bf16 for P.V, as in the twin and the TPU kernel.
+// Fragments are read straight from shared memory (LDS.128 / LDS.64; no
+// ldmatrix: it moves 16-bit elements and int8 rows need widening) under
+// one permutation of the contraction and output indices that both cache
+// types share (see Frag), so the two-phase kernel folds bf16 and int8
+// regions into one accumulator.  int8 values widen to bf16 exactly in
+// registers with byte permutes and one fp32 add each (no conversion
+// instruction).  Each slot's 16-byte pieces are XOR-swizzled so that every
+// fragment read is free of bank conflicts.  The warps' states and the
+// carry in merge once, at the end, through shared memory.  At GPT-2 XL
+// b96 the int8 form holds 5 blocks an SM (45 KB of ring, <= 96 registers),
+// the bf16 form 3 (75 KB).
+//
+// fp32 q keeps the CUDA-core kernels (the fp32 parity gates rest on them):
+// the auto kernel stages a tile of 64 slots with loads through registers
+// and computes on it thread-per-slot before it asks for the next.  The
+// manual kernel (bf16 and fp32) keeps S - 1 tiles of 16-byte cp.async
+// copies in flight while it computes (tile t + S - 1 is started before
+// tile t is computed), in a ring of S shared-memory stages, each slot's
+// 16-byte chunks XOR-swizzled so that both compute phases read them
+// without bank conflicts; its softmax weights stay fp32.  A kernel tile or
+// chunk may straddle two layout tiles of the tile-major cache: every copy
+// computes its slot's own address.  TMA, wgmma and a split over the slot
+// axis are later work.
 #include "common.cuh"
 
 namespace clipcap {
@@ -67,7 +92,6 @@ constexpr int kMaxK = 8;             // queries per (row, head)
 // the thread-per-slot reads of the logits phase free of bank conflicts.
 template <typename T> struct Staged;
 template <> struct Staged<float> { static constexpr int bytes = 129 * 4; };
-template <> struct Staged<__nv_bfloat16> { static constexpr int bytes = 65 * 4; };
 template <> struct Staged<int8_t> { static constexpr int bytes = 33 * 4; };
 
 template <typename A, typename B> struct StagedMax {
@@ -77,15 +101,6 @@ template <typename A, typename B> struct StagedMax {
 
 // q . k over the 64 K-values of one staged slot.
 __device__ __forceinline__ float dot64(const float* q, const float* k) {
-  float dot = 0.f;
-#pragma unroll 8
-  for (int j = 0; j < kDh; j += 2) {
-    const float2 kk = load2(k + j);
-    dot += q[j] * kk.x + q[j + 1] * kk.y;
-  }
-  return dot;
-}
-__device__ __forceinline__ float dot64(const float* q, const __nv_bfloat16* k) {
   float dot = 0.f;
 #pragma unroll 8
   for (int j = 0; j < kDh; j += 2) {
@@ -331,9 +346,10 @@ __device__ void finish(TQ* out, int rh, int K, const SoftmaxSmem& sm,
   }
 }
 
-template <typename TQ, typename TC>
+// fp32 q on CUDA cores (bf16 q takes flash_decode_mma_kernel below).
+template <typename TC>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const TQ* __restrict__ q, Segment seg, TQ* __restrict__ out,
+flash_decode_kernel(const float* __restrict__ q, Segment seg, float* __restrict__ out,
                     const float* m_in, const float* l_in, const float* acc_in,
                     float* m_out, float* l_out, float* acc_out, int H, int K, float scale) {
   __shared__ __align__(16) unsigned char tile[kTile * Staged<TC>::bytes];
@@ -345,10 +361,10 @@ flash_decode_kernel(const TQ* __restrict__ q, Segment seg, TQ* __restrict__ out,
   finish(out, rh, K, sm, acc, m_out, l_out, acc_out);
 }
 
-template <typename TQ, typename TS, typename TL>
+template <typename TS, typename TL>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_two_phase_kernel(const TQ* __restrict__ q, Segment shared, Segment live,
-                              TQ* __restrict__ out, int H, int K, float scale) {
+flash_decode_two_phase_kernel(const float* __restrict__ q, Segment shared, Segment live,
+                              float* __restrict__ out, int H, int K, float scale) {
   __shared__ __align__(16) unsigned char tile[kTile * StagedMax<TS, TL>::bytes];
   __shared__ SoftmaxSmem sm;
   const int rh = blockIdx.x, r = rh / H;
@@ -415,35 +431,466 @@ flash_decode_manual_kernel(const T* __restrict__ q, Segment seg, T* __restrict__
   finish(out, rh, K, sm, acc, nullptr, nullptr, nullptr);
 }
 
-template <typename TQ>
-void launch_single(const void* q, const Segment& seg, bool int8, void* out, const float* m_in,
-                   const float* l_in, const float* acc_in, float* m_out, float* l_out,
-                   float* acc_out, int R, int H, int K, float scale, cudaStream_t st) {
-  const TQ* qq = static_cast<const TQ*>(q);
-  TQ* o = static_cast<TQ*>(out);
+// ---------------------------------------------------------------------------
+// bf16 q: tensor cores, a warp-private cp.async ring per warp
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kMmaBlocksPerSm = 5;    // caps registers at 96 a thread (int8: 5 blocks an SM)
+constexpr int kChunk = 32;            // slots a warp folds per step
+constexpr int kStages = 2;            // ring stages per warp
+constexpr int kMaskLd = kChunk + 8;   // a staged mask row, padded by 8 floats
+
+using bf16 = __nv_bfloat16;
+
+// Signed bytes i and j of w as a bf16 pair, exactly and without a
+// conversion instruction: ``biased`` is w ^ 0x80808080, so each byte holds
+// x + 128; that byte under the exponent of 2^23 is the float 2^23 + x + 128,
+// less 2^23 + 128 it is x, and x (at most 8 significant bits) is the upper
+// half of its float bits.
+__device__ __forceinline__ uint32_t widen2(uint32_t biased, int i, int j) {
+  const float a = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 | i)) - 8388736.f;
+  const float b = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 | j)) - 8388736.f;
+  return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
+}
+
+// How a staged chunk is laid out and read into mma fragments.  The
+// contraction index of q.k^T and the output index of P.V are permuted the
+// same way for both cache types, so the two-phase walk folds bf16 and int8
+// chunks into one accumulator:
+//   q.k^T  k-step kc, fragment column 2t + e (+ 8) <-> dh 16t + 4kc + e (+ 2):
+//          thread t reads its K values of a slot as one run of 16 dh;
+//   P.V    computed as O^T = V^T . P^T, m-tile mt, fragment row g (g + 8)
+//          <-> dh 8g + 2mt (+ 1): thread g reads the V values dh
+//          8g .. 8g + 7 of each of its four slots as one run.
+// Slot s of a chunk sits at s * kSlot, its 16-byte pieces XOR-swizzled so
+// that every fragment read of a warp is free of bank conflicts (pos()).
+template <typename TC> struct Frag;
+
+// bf16 slot: 256 bytes, piece c (0-7 K, 8-15 V) at c ^ (s & 7).  A quarter
+// warp's K reads (slots 8j + g, pieces 2t and 2t + 1) and V reads (slots
+// 2t + e, piece 8 + g) fall on 8 different 16-byte bank groups.
+template <> struct Frag<bf16> {
+  static constexpr int kSlot = 256, kPieces = 16;
+  __device__ static int pos(int s, int c) { return s * kSlot + ((c ^ (s & 7)) << 4); }
+  // B fragments of q.k^T against slot s: kb[2kc], kb[2kc + 1] of k-step kc.
+  __device__ static void k_frag(const unsigned char* st, int s, int t, uint32_t (&kb)[8]) {
+    const uint4 a = *reinterpret_cast<const uint4*>(st + pos(s, 2 * t));
+    const uint4 b = *reinterpret_cast<const uint4*>(st + pos(s, 2 * t + 1));
+    kb[0] = a.x; kb[1] = a.y; kb[2] = a.z; kb[3] = a.w;
+    kb[4] = b.x; kb[5] = b.y; kb[6] = b.z; kb[7] = b.w;
+  }
+  // V values of the 16 slots from s0 as bf16 pairs: vb[e][0] holds dh
+  // 8g + e of slots s0 + 2t + {0, 1}, vb[e][1] of slots s0 + 8 + 2t + {0, 1};
+  // m-tile mt of V^T takes {vb[2mt][0], vb[2mt + 1][0], vb[2mt][1],
+  // vb[2mt + 1][1]} as its A fragment.
+  __device__ static void v_frag(const unsigned char* st, int s0, int g, int t,
+                                uint32_t (&vb)[8][2]) {
+    uint4 v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      v[i] = *reinterpret_cast<const uint4*>(st + pos(s0 + 2 * t + (i & 1) + (i >> 1) * 8, 8 + g));
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const uint32_t a[4] = {v[2 * i].x, v[2 * i].y, v[2 * i].z, v[2 * i].w};
+      const uint32_t b[4] = {v[2 * i + 1].x, v[2 * i + 1].y, v[2 * i + 1].z, v[2 * i + 1].w};
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        vb[nt][i] = __byte_perm(a[nt >> 1], b[nt >> 1], (nt & 1) ? 0x7632 : 0x5410);
+    }
+  }
+};
+
+// int8 slot: 128 bytes, piece c (0-3 K, 4-7 V) at c ^ 2((s >> 1) & 3) ^ 4(s & 1).
+// A quarter warp's K reads (16 bytes: slots 8j + g, piece t) and a half
+// warp's V reads (8 bytes: slots 2t + e, half g & 1 of piece 4 + g / 2)
+// fall on distinct banks.  Values widen to bf16 in registers, exactly.
+template <> struct Frag<int8_t> {
+  static constexpr int kSlot = 128, kPieces = 8;
+  __device__ static int pos(int s, int c) {
+    return s * kSlot + ((c ^ (((s >> 1) & 3) << 1) ^ ((s & 1) << 2)) << 4);
+  }
+  __device__ static void k_frag(const unsigned char* st, int s, int t, uint32_t (&kb)[8]) {
+    const uint4 a = *reinterpret_cast<const uint4*>(st + pos(s, t));
+    const uint32_t w[4] = {a.x ^ 0x80808080u, a.y ^ 0x80808080u, a.z ^ 0x80808080u,
+                           a.w ^ 0x80808080u};
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      kb[2 * kc] = widen2(w[kc], 0, 1);
+      kb[2 * kc + 1] = widen2(w[kc], 2, 3);
+    }
+  }
+  __device__ static void v_frag(const unsigned char* st, int s0, int g, int t,
+                                uint32_t (&vb)[8][2]) {
+    uint2 v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      v[i] = *reinterpret_cast<const uint2*>(
+          st + pos(s0 + 2 * t + (i & 1) + (i >> 1) * 8, 4 + (g >> 1)) + (g & 1) * 8);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      // Bytes nt of slots a and b side by side, then widened as a pair.
+      const uint32_t a[2] = {v[2 * i].x ^ 0x80808080u, v[2 * i].y ^ 0x80808080u};
+      const uint32_t b[2] = {v[2 * i + 1].x ^ 0x80808080u, v[2 * i + 1].y ^ 0x80808080u};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t lo = __byte_perm(a[h], b[h], 0x5140), hi = __byte_perm(a[h], b[h], 0x7362);
+        vb[4 * h][i] = widen2(lo, 0, 1);
+        vb[4 * h + 1][i] = widen2(lo, 2, 3);
+        vb[4 * h + 2][i] = widen2(hi, 0, 1);
+        vb[4 * h + 3][i] = widen2(hi, 2, 3);
+      }
+    }
+  }
+};
+
+// One ring stage: kChunk slots of the wider cache type, then the chunk's
+// mask rows [kMaxK][kMaskLd] fp32 and, where a region is int8, sk and sv.
+template <typename TS, typename TL> struct Stage {
+  static constexpr int kSlotMax = Frag<TS>::kSlot > Frag<TL>::kSlot ? Frag<TS>::kSlot
+                                                                     : Frag<TL>::kSlot;
+  static constexpr bool kScales = sizeof(TS) == 1 || sizeof(TL) == 1;
+  static constexpr int kMask = kChunk * kSlotMax;
+  static constexpr int kSk = kMask + kMaxK * kMaskLd * 4;
+  static constexpr int kSv = kSk + kChunk * 4;
+  static constexpr int kBytes = kScales ? kSv + kChunk * 4 : kSk;
+  static constexpr int kSmem = kMmaWarps * kStages * kBytes;   // per block
+};
+
+// Slots [u0, u0 + n) of one segment, n <= kChunk.
+struct Chunk {
+  int u0, n;
+};
+
+// Start one warp's cp.async copies of a chunk into stage st: its slots
+// (zero-filled past n), the K mask rows and, for int8, the scales.
+template <typename TC, typename S>
+__device__ __forceinline__ void start_chunk(const Segment& seg, int r, int h, int H, int K,
+                                            Chunk c, unsigned char* st, int lane) {
+  using F = Frag<TC>;
+  const unsigned char* kv = static_cast<const unsigned char*>(seg.kv);
+  // Slot u0 + s is at offset o0 + s of layout tile t0, carried into the next
+  // tiles (H heads on) past ut; the strided form is one tile of ut = U.
+  const int t0 = c.u0 / seg.ut, o0 = c.u0 - t0 * seg.ut;
+  const size_t tile0 = ((size_t)r * (seg.U / seg.ut) + t0) * H + h;
+  const int piece = lane % F::kPieces;
+#pragma unroll 4
+  for (int s = lane / F::kPieces; s < kChunk; s += 32 / F::kPieces) {
+    const bool ok = s < c.n;
+    int o = o0 + (ok ? s : 0);
+    size_t tile = tile0;
+    while (o >= seg.ut) {
+      o -= seg.ut;
+      tile += H;
+    }
+    cp_async16(st + F::pos(s, piece), kv + (tile * seg.ut + o) * F::kSlot + piece * 16, ok);
+  }
+  const float* mask = seg.mask + (size_t)(seg.Rm > 1 ? r : 0) * K * seg.U + c.u0;
+  float* ms = reinterpret_cast<float*>(st + S::kMask);
+  for (int i = lane; i < K * kChunk; i += 32) {
+    const int k = i / kChunk, s = i % kChunk;
+    const bool ok = s < c.n;
+    cp_async4(ms + k * kMaskLd + s, mask + (ok ? (size_t)k * seg.U + s : 0), ok);
+  }
+  if constexpr (sizeof(TC) == 1) {
+    const size_t at = ((size_t)r * H + h) * seg.U + c.u0;
+    for (int s = lane; s < kChunk; s += 32) {
+      const bool ok = s < c.n;
+      cp_async4(st + S::kSk + s * 4, seg.sk + at + (ok ? s : 0), ok);
+      cp_async4(st + S::kSv + s * 4, seg.sv + at + (ok ? s : 0), ok);
+    }
+  }
+}
+
+// One warp's online-softmax state: the running max m of query g (its row
+// of the 16-row q.k^T tile; rows g >= K and g + 8 are zero padding and
+// weigh nothing), this thread's share of query g's running sum l (a quad's
+// shares add up at the end), and the unnormalised accumulator O^T, the
+// queries as its n: o[mt][e] is query 2t + (e & 1), dh 8g + 2mt + (e >> 1).
+struct WarpState {
+  float m, l;
+  float o[4][4];
+};
+
+// Fold one staged chunk of n slots into the warp's softmax.  qa holds q's
+// A fragments (qa[2kc], qa[2kc + 1] of k-step kc; row g).
+template <typename TC, typename S>
+__device__ __forceinline__ void fold_chunk(const unsigned char* st, int n, int K, float scale,
+                                           const uint32_t (&qa)[8], int g, int t,
+                                           WarpState& ws) {
+  using F = Frag<TC>;
+  constexpr bool kInt8 = sizeof(TC) == 1;
+  constexpr int kTiles = kChunk / 8;
+  const float* ms = reinterpret_cast<const float*>(st + S::kMask) + g * kMaskLd;
+  const float* sk = reinterpret_cast<const float*>(st + S::kSk);
+  const float* sv = reinterpret_cast<const float*>(st + S::kSv);
+
+  // S = q.k^T: s[j][e] is query g against slot 8j + 2t + e.
+  float s[kTiles][4];
+#pragma unroll
+  for (int j = 0; j < kTiles; ++j) {
+    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    uint32_t kb[8];
+    F::k_frag(st, 8 * j + g, t, kb);
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      const uint32_t a[4] = {qa[2 * kc], 0u, qa[2 * kc + 1], 0u};
+      mma_bf16(s[j], a, kb[2 * kc], kb[2 * kc + 1]);
+    }
+  }
+
+  // Logits: scale, k-scale, mask; -inf past the chunk's n slots and on the
+  // padded rows, so that those weigh exactly 0.
+  const bool row = g < K;
+  float mt = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kTiles; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int sl = 8 * j + 2 * t + e;
+      float x = -INFINITY;
+      if (row && sl < n) {
+        x = s[j][e] * scale;
+        if constexpr (kInt8) x *= sk[sl];
+        x += ms[sl];
+      }
+      s[j][e] = x;
+      mt = fmaxf(mt, x);
+    }
+  }
+  mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+  mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+  const float m_new = fmaxf(ws.m, mt);
+  const float m_use = m_new == -INFINITY ? 0.f : m_new;       // all hidden so far
+  const float alpha = expf(ws.m - m_use);
+  ws.m = m_new;
+  ws.l *= alpha;
+  // The accumulator's queries 2t and 2t + 1 take their alphas from quads 2t, 2t + 1.
+  const float a0 = __shfl_sync(0xffffffffu, alpha, 8 * t);
+  const float a1 = __shfl_sync(0xffffffffu, alpha, 8 * t + 4);
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    ws.o[mt][0] *= a0;
+    ws.o[mt][1] *= a1;
+    ws.o[mt][2] *= a0;
+    ws.o[mt][3] *= a1;
+  }
+
+  // Weights: the sum takes them unscaled; the v-scale multiplies them and
+  // they round to bf16 for P.V, as in the twin and the TPU kernel.  The S
+  // accumulators of slots 16kk .. 16kk + 15 (query g, slots 2t + e and
+  // 8 + 2t + e) are the B fragment of P^T for k-step kk as they stand.
+  uint32_t pa[kTiles / 2][2];
+#pragma unroll
+  for (int j = 0; j < kTiles; ++j) {
+    float p0 = expf(s[j][0] - m_use), p1 = expf(s[j][1] - m_use);
+    ws.l += p0 + p1;
+    if constexpr (kInt8) {
+      p0 *= sv[8 * j + 2 * t];
+      p1 *= sv[8 * j + 2 * t + 1];
+    }
+    pa[j >> 1][j & 1] = pack_bf16(p0, p1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < kTiles / 2; ++kk) {
+    uint32_t vb[8][2];
+    F::v_frag(st, 16 * kk, g, t, vb);
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      const uint32_t a[4] = {vb[2 * mt][0], vb[2 * mt + 1][0], vb[2 * mt][1],
+                             vb[2 * mt + 1][1]};
+      mma_bf16(ws.o[mt], a, pa[kk][0], pa[kk][1]);
+    }
+  }
+}
+
+// Decode attention for bf16 q over one segment (kTwo false; s1 and TL
+// unused) or over a shared then a live segment in one softmax (kTwo).  One
+// block per (row, head) of kMmaWarps warps.  The slots of the segments are cut
+// into chunks of kChunk, numbered across both; warp w folds chunks w,
+// w + kMmaWarps, ... into its own softmax state, fed by its own ring of
+// kStages cp.async stages (chunk j + kStages - 1 starts before chunk j is
+// folded), with __syncwarp only.  The warps' states and the carry in merge
+// once at the end through shared memory.
+template <typename TS, typename TL, bool kTwo>
+__global__ void __launch_bounds__(kMmaThreads, kMmaBlocksPerSm)
+flash_decode_mma_kernel(const bf16* __restrict__ q, Segment s0, Segment s1,
+                        bf16* __restrict__ out, const float* m_in, const float* l_in,
+                        const float* acc_in, float* m_out, float* l_out, float* acc_out, int H,
+                        int K, float scale) {
+  using S = Stage<TS, TL>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rh = blockIdx.x, r = rh / H, h = rh - r * H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  unsigned char* ring = smem + warp * kStages * S::kBytes;
+
+  const int lo0 = seg_lo(s0, r), hi0 = seg_hi(s0, r);
+  const int n0 = hi0 > lo0 ? (hi0 - lo0 + kChunk - 1) / kChunk : 0;
+  int lo1 = 0, hi1 = 0, n1 = 0;
+  if constexpr (kTwo) {
+    lo1 = seg_lo(s1, r);
+    hi1 = seg_hi(s1, r);
+    n1 = hi1 > lo1 ? (hi1 - lo1 + kChunk - 1) / kChunk : 0;
+  }
+  const int total = n0 + n1;
+  const int mine = total > warp ? (total - warp + kMmaWarps - 1) / kMmaWarps : 0;
+  // The warp's j-th chunk is chunk warp + j kMmaWarps of the walk.
+  auto chunk = [&](int i) {
+    return i < n0 ? Chunk{lo0 + i * kChunk, min(kChunk, hi0 - lo0 - i * kChunk)}
+                  : Chunk{lo1 + (i - n0) * kChunk, min(kChunk, hi1 - lo1 - (i - n0) * kChunk)};
+  };
+  auto start = [&](int j) {                // one commit group per call, empty past the end
+    if (j < mine) {
+      const int i = warp + j * kMmaWarps;
+      unsigned char* st = ring + (j % kStages) * S::kBytes;
+      if (i < n0)
+        start_chunk<TS, S>(s0, r, h, H, K, chunk(i), st, lane);
+      else
+        start_chunk<TL, S>(s1, r, h, H, K, chunk(i), st, lane);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) start(j);
+
+  // q's A fragments, row g (zero for g >= K): dh 16t .. 16t + 15.
+  uint32_t qa[8] = {};
+  if (g < K) {
+    const uint4* qp = reinterpret_cast<const uint4*>(q + ((size_t)rh * K + g) * kDh + 16 * t);
+    const uint4 a = qp[0], b = qp[1];
+    qa[0] = a.x; qa[1] = a.y; qa[2] = a.z; qa[3] = a.w;
+    qa[4] = b.x; qa[5] = b.y; qa[6] = b.z; qa[7] = b.w;
+  }
+
+  WarpState ws;
+  ws.m = -INFINITY;
+  ws.l = 0.f;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) ws.o[mt][0] = ws.o[mt][1] = ws.o[mt][2] = ws.o[mt][3] = 0.f;
+  for (int j = 0; j < mine; ++j) {
+    __syncwarp();                          // every lane is done with chunk j - 1's stage
+    start(j + kStages - 1);
+    cp_async_wait<kStages - 1>();          // this lane's copies of chunk j have landed
+    __syncwarp();                          // and every lane's
+    const int i = warp + j * kMmaWarps;
+    const unsigned char* st = ring + (j % kStages) * S::kBytes;
+    if (i < n0)
+      fold_chunk<TS, S>(st, chunk(i).n, K, scale, qa, g, t, ws);
+    else
+      fold_chunk<TL, S>(st, chunk(i).n, K, scale, qa, g, t, ws);
+  }
+  cp_async_wait<0>();
+  ws.l += __shfl_xor_sync(0xffffffffu, ws.l, 1);
+  ws.l += __shfl_xor_sync(0xffffffffu, ws.l, 2);
+
+  // Merge: each warp's (acc, m, l) per query into the idle rings, then one
+  // thread per output element brings them and the carry in to the common
+  // max: m = max, l and acc summed with weights exp(m_w - m).
+  constexpr int kPart = kDh + 2;
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(smem);     // [kMmaWarps][kMaxK][kPart]
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (2 * t + e < K) {
+      float* p = part + (warp * kMaxK + 2 * t + e) * kPart + 8 * g;
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        p[2 * mt] = ws.o[mt][e];
+        p[2 * mt + 1] = ws.o[mt][2 + e];
+      }
+    }
+  }
+  if (g < K && t == 0) {
+    part[(warp * kMaxK + g) * kPart + kDh] = ws.m;
+    part[(warp * kMaxK + g) * kPart + kDh + 1] = ws.l;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < K * kDh; i += kMmaThreads) {
+    const int k = i / kDh, d = i - k * kDh;
+    const size_t ml = (size_t)rh * K + k, at = ml * kDh + d;
+    float m = m_in ? m_in[ml] : -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kMmaWarps; ++w) m = fmaxf(m, part[(w * kMaxK + k) * kPart + kDh]);
+    const float m_use = m == -INFINITY ? 0.f : m;
+    float l = 0.f, acc = 0.f;
+    if (m_in) {
+      const float a = expf(m_in[ml] - m_use);
+      l = l_in[ml] * a;
+      acc = acc_in[at] * a;
+    }
+#pragma unroll
+    for (int w = 0; w < kMmaWarps; ++w) {
+      const float* p = part + (w * kMaxK + k) * kPart;
+      const float a = expf(p[kDh] - m_use);
+      l += p[kDh + 1] * a;
+      acc += p[d] * a;
+    }
+    if (acc_out) {
+      acc_out[at] = acc;
+      if (d == 0) {
+        m_out[ml] = m;
+        l_out[ml] = l;
+      }
+    } else {
+      out[at] = __float2bfloat16(acc / fmaxf(l, 1e-30f));
+    }
+  }
+}
+
+template <typename TS, typename TL, bool kTwo>
+cudaError_t launch_mma(const void* q, const Segment& s0, const Segment& s1, void* out,
+                       const float* m_in, const float* l_in, const float* acc_in, float* m_out,
+                       float* l_out, float* acc_out, int R, int H, int K, float scale,
+                       cudaStream_t st) {
+  constexpr int smem = Stage<TS, TL>::kSmem;
+  const auto kernel = flash_decode_mma_kernel<TS, TL, kTwo>;
+  const cudaError_t set =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (set != cudaSuccess) return set;
+  kernel<<<R * H, kMmaThreads, smem, st>>>(static_cast<const bf16*>(q), s0, s1,
+                                        static_cast<bf16*>(out), m_in, l_in, acc_in, m_out,
+                                        l_out, acc_out, H, K, scale);
+  return cudaGetLastError();
+}
+
+// fp32 q: the CUDA-core kernels above.
+void launch_fp32(const void* q, const Segment& seg, bool int8, void* out, const float* m_in,
+                 const float* l_in, const float* acc_in, float* m_out, float* l_out,
+                 float* acc_out, int R, int H, int K, float scale, cudaStream_t st) {
+  const float* qq = static_cast<const float*>(q);
+  float* o = static_cast<float*>(out);
   if (int8)
-    flash_decode_kernel<TQ, int8_t><<<R * H, kThreads, 0, st>>>(
+    flash_decode_kernel<int8_t><<<R * H, kThreads, 0, st>>>(
         qq, seg, o, m_in, l_in, acc_in, m_out, l_out, acc_out, H, K, scale);
   else
-    flash_decode_kernel<TQ, TQ><<<R * H, kThreads, 0, st>>>(
+    flash_decode_kernel<float><<<R * H, kThreads, 0, st>>>(
         qq, seg, o, m_in, l_in, acc_in, m_out, l_out, acc_out, H, K, scale);
 }
 
-template <typename TQ>
-void launch_two_phase(const void* q, const Segment& sh, const Segment& lv, void* out, int R,
-                      int H, int K, float scale, cudaStream_t st) {
-  const TQ* qq = static_cast<const TQ*>(q);
-  TQ* o = static_cast<TQ*>(out);
+void launch_two_phase_fp32(const void* q, const Segment& sh, const Segment& lv, void* out, int R,
+                           int H, int K, float scale, cudaStream_t st) {
+  const float* qq = static_cast<const float*>(q);
+  float* o = static_cast<float*>(out);
   const dim3 grid(R * H);
   const bool s8 = sh.sk != nullptr, l8 = lv.sk != nullptr;
   if (s8 && l8)
-    flash_decode_two_phase_kernel<TQ, int8_t, int8_t><<<grid, kThreads, 0, st>>>(qq, sh, lv, o, H, K, scale);
+    flash_decode_two_phase_kernel<int8_t, int8_t><<<grid, kThreads, 0, st>>>(qq, sh, lv, o, H, K, scale);
   else if (s8)
-    flash_decode_two_phase_kernel<TQ, int8_t, TQ><<<grid, kThreads, 0, st>>>(qq, sh, lv, o, H, K, scale);
+    flash_decode_two_phase_kernel<int8_t, float><<<grid, kThreads, 0, st>>>(qq, sh, lv, o, H, K, scale);
   else if (l8)
-    flash_decode_two_phase_kernel<TQ, TQ, int8_t><<<grid, kThreads, 0, st>>>(qq, sh, lv, o, H, K, scale);
+    flash_decode_two_phase_kernel<float, int8_t><<<grid, kThreads, 0, st>>>(qq, sh, lv, o, H, K, scale);
   else
-    flash_decode_two_phase_kernel<TQ, TQ, TQ><<<grid, kThreads, 0, st>>>(qq, sh, lv, o, H, K, scale);
+    flash_decode_two_phase_kernel<float, float><<<grid, kThreads, 0, st>>>(qq, sh, lv, o, H, K, scale);
+}
+
+cudaError_t launch_two_phase_bf16(const void* q, const Segment& sh, const Segment& lv, void* out,
+                                  int R, int H, int K, float scale, cudaStream_t st) {
+  const bool s8 = sh.sk != nullptr, l8 = lv.sk != nullptr;
+  auto launch = s8 ? (l8 ? launch_mma<int8_t, int8_t, true> : launch_mma<int8_t, bf16, true>)
+                   : (l8 ? launch_mma<bf16, int8_t, true> : launch_mma<bf16, bf16, true>);
+  return launch(q, sh, lv, out, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, R, H, K,
+                scale, st);
 }
 
 template <typename T, int S>
@@ -489,11 +936,15 @@ extern "C" int clipcap_flash_decode(const void* q, const void* kv, const void* s
                     static_cast<const float*>(mask), static_cast<const int*>(lo_vec),
                     static_cast<const int*>(hi_vec), lo, hi, U, Rm, ut};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto launch = dtype == kBFloat16 ? launch_single<__nv_bfloat16> : launch_single<float>;
-  launch(q, seg, sk != nullptr, out, static_cast<const float*>(m_in),
-         static_cast<const float*>(l_in), static_cast<const float*>(acc_in),
-         static_cast<float*>(m_out), static_cast<float*>(l_out), static_cast<float*>(acc_out),
-         R, H, K, scale, st);
+  const auto mi = static_cast<const float*>(m_in), li = static_cast<const float*>(l_in),
+             ai = static_cast<const float*>(acc_in);
+  const auto mo = static_cast<float*>(m_out), lout = static_cast<float*>(l_out),
+             ao = static_cast<float*>(acc_out);
+  if (dtype == kBFloat16) {
+    auto launch = sk ? launch_mma<int8_t, int8_t, false> : launch_mma<bf16, bf16, false>;
+    return static_cast<int>(launch(q, seg, seg, out, mi, li, ai, mo, lout, ao, R, H, K, scale, st));
+  }
+  launch_fp32(q, seg, sk != nullptr, out, mi, li, ai, mo, lout, ao, R, H, K, scale, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -534,8 +985,7 @@ extern "C" int clipcap_flash_decode_two_phase(
                    static_cast<const int*>(lv_hi_vec), lv_lo, lv_hi, Ul, lRm, Ul};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16)
-    launch_two_phase<__nv_bfloat16>(q, sh, lv, out, R, H, K, scale, st);
-  else
-    launch_two_phase<float>(q, sh, lv, out, R, H, K, scale, st);
+    return static_cast<int>(launch_two_phase_bf16(q, sh, lv, out, R, H, K, scale, st));
+  launch_two_phase_fp32(q, sh, lv, out, R, H, K, scale, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -77,11 +77,6 @@ constexpr int kLd = kDh + 8;       // padded shared-memory row (144 bytes)
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 __global__ void __launch_bounds__(kMmaThreads)
 sdpa_mma_kernel(Operands op, int N, int causal, float scale_log2) {
   __shared__ __align__(128) bf16 qs[kBlockQ][kLd];       // q tile, then the output

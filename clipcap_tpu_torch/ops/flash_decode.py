@@ -15,9 +15,15 @@ times the slot's k-scale, plus the additive fp32 mask; an fp32 online
 softmax; for an int8 cache the weights times the slot's v-scale; the value
 product accumulated in fp32 and the output cast to q's dtype.  Only slots
 ``[lo, hi)`` of each row are contracted and read, so the caller's mask
-need not cover the others.  The twins round the softmax weights to q's
-dtype before the value product, as the Pallas kernel does; the CUDA kernel
-keeps them in fp32 (bf16 outputs differ by up to ~2e-2 at O(1)).
+need not cover the others.  The softmax weights are rounded to q's dtype
+before the value product, as the Pallas kernel does: in the twins, and in
+the bf16 kernels, which compute q·kᵀ and the value product on tensor cores
+(``mma.sync``, fp32 accumulation), each of a block's warps folding its own
+chunks of slots into its own running softmax before one merge; their
+bf16 outputs differ from the twin's by up to ~2e-2 at O(1), where the
+twin rounds against the row's max and a warp against its running max.
+fp32 q takes the CUDA-core kernels; the manual-pipeline kernel keeps its
+weights in fp32.
 
 A bound is a host int (the decode loops know the step on the host) or a
 device int32 ``[R]`` vector (one bound per row, e.g. each sample's

@@ -103,22 +103,43 @@ def test_flash_decode_int8_ref_matches_pallas(dtype, K, per_row):
     np.testing.assert_allclose(_np(got), _np(want), atol=TOL.get(dtype, 1e-5), rtol=0)
 
 
-@pytest.mark.parametrize("int8", [False, True])
-def test_flash_decode_carry_resumes_as_one_call(int8):
+def _regions_in(dtype, *arrays):
+    """bf16/fp32 cache regions as (jax arrays, torch tensors) in ``dtype``
+    (numpy fp32 in; the same rounded values on both sides)."""
+    pairs = [_both(a, dtype) for a in arrays]
+    return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+# The float32 cases keep their ids from before the bfloat16 cases.
+CARRY_CASES = [pytest.param(False, "float32", id="False"),
+               pytest.param(True, "float32", id="True"),
+               pytest.param(False, "bfloat16", id="bfloat16-False"),
+               pytest.param(True, "bfloat16", id="bfloat16-True")]
+
+
+@pytest.mark.parametrize("int8,dtype", CARRY_CASES)
+def test_flash_decode_carry_resumes_as_one_call(int8, dtype):
     """Phase A's partials over one buffer, resumed by phase B over another
     from ``u_lo``, equal one call over the concatenation; A's (m, l, acc)
-    equal the Pallas kernel's (its acc carries both halves of the row)."""
+    equal the Pallas kernel's (its acc carries both halves of the row).
+    bfloat16: q and the bf16 regions in bf16 (int8 regions stay int8);
+    outputs within ``TOL`` (2e-2: the weights round to bf16 against each
+    call's own running max), the carry's m and l within 1e-5 relative and
+    its acc / l within ``TOL``."""
     rng = np.random.default_rng(9 + int8)
     R, H, K, U, Sc = 2, 3, 5, 256, 128
-    q = rng.standard_normal((R, H, K, 64)).astype(np.float32)
+    jq, tq = _both(rng.standard_normal((R, H, K, 64)).astype(np.float32), dtype)
+    tol = TOL.get(dtype, 1e-5)
     if int8:
         kv, ksk, ksv = _int8_cache(rng, R, H, U)
         sh, ssk, ssv = _int8_cache(rng, R, H, Sc)
         kvs, shs = (_t(ksk), _t(ksv)), (_t(ssk), _t(ssv))
         jkvs, jshs = (jnp.asarray(ksk), jnp.asarray(ksv)), (jnp.asarray(ssk), jnp.asarray(ssv))
+        (jkv, jsh), (tkv, tsh) = (jnp.asarray(kv), jnp.asarray(sh)), (_t(kv), _t(sh))
     else:
-        kv = rng.standard_normal((R, H, U, 128)).astype(np.float32)
-        sh = rng.standard_normal((R, H, Sc, 128)).astype(np.float32)
+        (jkv, jsh), (tkv, tsh) = _regions_in(
+            dtype, rng.standard_normal((R, H, U, 128)).astype(np.float32),
+            rng.standard_normal((R, H, Sc, 128)).astype(np.float32))
         kvs = shs = jkvs = jshs = None
     for c in (0, 1, 40, 128):
         for live_valid in (129, 256):
@@ -127,66 +148,81 @@ def test_flash_decode_carry_resumes_as_one_call(int8):
             live_mask = np.broadcast_to(np.where(np.arange(U) < live_valid, 0.0, NEG_INF),
                                         (1, K, U)).copy()
             live_mask[:, :, :c // 2] = NEG_INF          # phase B skips what A served
-            part = flash_decode_ref(_t(q), _t(sh), _t(sh_mask), c, scales=shs,
-                                    return_carry=True)
-            two = flash_decode_ref(_t(q), _t(kv), _t(live_mask), live_valid, scales=kvs,
+            part = flash_decode_ref(tq, tsh, _t(sh_mask), c, scales=shs, return_carry=True)
+            two = flash_decode_ref(tq, tkv, _t(live_mask), live_valid, scales=kvs,
                                    u_lo=c // 2, carry=part)
             one = flash_decode_ref(
-                _t(q), torch.cat([_t(sh), _t(kv)], dim=2),
+                tq, torch.cat([tsh, tkv], dim=2),
                 torch.cat([_t(sh_mask), _t(live_mask)], dim=2), None,
                 scales=None if not int8 else tuple(torch.cat(p, dim=2)
                                                    for p in zip(shs, kvs)))
-            np.testing.assert_allclose(two.numpy(), one.numpy(), atol=1e-5, rtol=0,
+            assert two.dtype == tq.dtype
+            np.testing.assert_allclose(_np(two), _np(one), atol=tol, rtol=0,
                                        err_msg=f"c={c} live_valid={live_valid}")
             if c == 0:
                 continue          # the JAX kernel reads a whole masked tile there
-            jpart = jflash_decode(jnp.asarray(q), jnp.asarray(sh), jnp.asarray(sh_mask),
-                                  u_valid=c, scales=jshs, return_carry=True, interpret=True)
-            jtwo = jflash_decode(jnp.asarray(q), jnp.asarray(kv), jnp.asarray(live_mask),
-                                 u_valid=live_valid, scales=jkvs, u_lo=c // 2, carry=jpart,
-                                 interpret=True)
-            for got, want in zip(part, (jpart[0], jpart[1], jpart[2][..., 64:])):
-                np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
-                                           rtol=1e-5)
-            np.testing.assert_allclose(two.numpy(), np.asarray(jtwo), atol=1e-5, rtol=0)
+            jpart = jflash_decode(jq, jsh, jnp.asarray(sh_mask), u_valid=c, scales=jshs,
+                                  return_carry=True, interpret=True)
+            jtwo = jflash_decode(jq, jkv, jnp.asarray(live_mask), u_valid=live_valid,
+                                 scales=jkvs, u_lo=c // 2, carry=jpart, interpret=True)
+            if dtype == "float32":
+                for got, want in zip(part, (jpart[0], jpart[1], jpart[2][..., 64:])):
+                    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                                               rtol=1e-5)
+            else:
+                for got, want in zip(part[:2], jpart[:2]):
+                    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=0,
+                                               rtol=1e-5)
+                np.testing.assert_allclose(
+                    (part[2] / part[1][..., None]).numpy(),
+                    np.asarray(jpart[2][..., 64:] / jpart[1][..., None]), atol=tol, rtol=0)
+            np.testing.assert_allclose(_np(two), _np(jtwo), atol=tol, rtol=0)
 
 
-@pytest.mark.parametrize("shared_int8,live_int8",
-                         [(False, False), (True, False), (False, True), (True, True)])
-def test_flash_decode_two_phase_ref_matches_pallas(shared_int8, live_int8):
-    """Per-sample shared lengths, live lows and live ends, all different."""
+# The float32 cases keep their ids from before the bfloat16 cases.
+MIXES = [(False, False), (True, False), (False, True), (True, True)]
+TWO_PHASE_CASES = [pytest.param(a, b, "float32", id=f"{a}-{b}") for a, b in MIXES] + [
+    pytest.param(a, b, "bfloat16", id=f"bfloat16-{a}-{b}") for a, b in MIXES]
+
+
+@pytest.mark.parametrize("shared_int8,live_int8,dtype", TWO_PHASE_CASES)
+def test_flash_decode_two_phase_ref_matches_pallas(shared_int8, live_int8, dtype):
+    """Per-sample shared lengths, live lows and live ends, all different.
+    bfloat16: q and the bf16 regions in bf16 (int8 regions stay int8),
+    within ``TOL`` (2e-2)."""
     rng = np.random.default_rng(11 + 2 * shared_int8 + live_int8)
     R, H, K, Sc, U = 4, 3, 5, 128, 256
-    q = rng.standard_normal((R, H, K, 64)).astype(np.float32)
+    jq, tq = _both(rng.standard_normal((R, H, K, 64)).astype(np.float32), dtype)
 
     def region(int8, n):
         if int8:
             rows, sk, sv = _int8_cache(rng, R, H, n)
-            return rows, (sk, sv)
-        return rng.standard_normal((R, H, n, 128)).astype(np.float32), None
+            return (jnp.asarray(rows), _t(rows)), (sk, sv)
+        return _both(rng.standard_normal((R, H, n, 128)).astype(np.float32), dtype), None
 
-    sh, sh_s = region(shared_int8, Sc)
-    kv, kv_s = region(live_int8, U)
+    (jsh, sh), sh_s = region(shared_int8, Sc)
+    (jkv, kv), kv_s = region(live_int8, U)
     c = np.array([1, 17, 40, 127], np.int32)
     lv_lo = np.array([0, 30, 85, 100], np.int32)
     lv_valid = np.array([64, 101, 256, 140], np.int32)
     sh_mask = _bounded_mask(rng, R, K, Sc, np.zeros(R, np.int32), c)
     live_mask = _bounded_mask(rng, R, K, U, lv_lo, lv_valid)
     want = jflash_two_phase(
-        jnp.asarray(q), jnp.asarray(sh), jnp.asarray(sh_mask), jnp.asarray(kv),
+        jq, jsh, jnp.asarray(sh_mask), jkv,
         jnp.asarray(live_mask), sh_valid=jnp.asarray(c), lv_lo=jnp.asarray(lv_lo),
         lv_valid=jnp.asarray(lv_valid),
         shared_scales=None if sh_s is None else tuple(map(jnp.asarray, sh_s)),
         live_scales=None if kv_s is None else tuple(map(jnp.asarray, kv_s)), interpret=True)
     got = flash_decode_two_phase_ref(
-        _t(q), _t(sh), _t(sh_mask), _t(kv), _t(live_mask), _t(c), _t(lv_lo), _t(lv_valid),
+        tq, sh, _t(sh_mask), kv, _t(live_mask), _t(c), _t(lv_lo), _t(lv_valid),
         shared_scales=None if sh_s is None else tuple(map(_t, sh_s)),
         live_scales=None if kv_s is None else tuple(map(_t, kv_s)))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    assert got.dtype == tq.dtype
+    np.testing.assert_allclose(_np(got), _np(want), atol=TOL.get(dtype, 1e-5), rtol=0)
     # The wrapper takes the twin for CPU tensors and counts no launch.
     before = flash_decode_two_phase.launches
     same = flash_decode_two_phase(
-        _t(q), _t(sh), _t(sh_mask), _t(kv), _t(live_mask), _t(c), _t(lv_lo), _t(lv_valid),
+        tq, sh, _t(sh_mask), kv, _t(live_mask), _t(c), _t(lv_lo), _t(lv_valid),
         shared_scales=None if sh_s is None else tuple(map(_t, sh_s)),
         live_scales=None if kv_s is None else tuple(map(_t, kv_s)))
     assert torch.equal(same, got) and flash_decode_two_phase.launches == before
@@ -411,8 +447,9 @@ def cuda():
     return torch.device("cuda")
 
 
-# fp32: another summation order (1e-4 abs); bf16: the twin rounds the
-# softmax weights to bf16 and the kernel keeps them fp32 (2e-2 abs).
+# fp32: another summation order (1e-4 abs); bf16: both round the softmax
+# weights to bf16 before the value product, the kernel against each warp's
+# running max and the twin against the row's max (2e-2 abs).
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -446,30 +483,81 @@ def test_flash_decode_int8_kernel_matches_twin(cuda, dtype, K):
     assert flash_decode.int8_launches == before + 5
 
 
+def _check_carry(part, part_ref, dtype):
+    """A kernel's (m, l, acc) against the twin's: fp32 all within 1e-4;
+    bf16 m and l within 1e-4 relative, acc / l within ``KERNEL_TOL``."""
+    if dtype == torch.float32:
+        for a, b in zip(part, part_ref):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
+        return
+    for a, b in zip(part[:2], part_ref[:2]):
+        torch.testing.assert_close(a, b, atol=0, rtol=1e-4)
+    torch.testing.assert_close(part[2] / part[1][..., None], part_ref[2] / part_ref[1][..., None],
+                               atol=KERNEL_TOL[dtype], rtol=0)
+
+
+# The float32 cases keep their ids from before the bfloat16 cases.
 @pytest.mark.cuda
-@pytest.mark.parametrize("int8", [False, True])
-def test_flash_decode_kernel_per_row_bounds_and_carry(cuda, int8):
+@pytest.mark.parametrize("int8,dtype", [
+    pytest.param(False, torch.float32, id="False"), pytest.param(True, torch.float32, id="True"),
+    pytest.param(False, torch.bfloat16, id="bfloat16-False"),
+    pytest.param(True, torch.bfloat16, id="bfloat16-True")])
+def test_flash_decode_kernel_per_row_bounds_and_carry(cuda, int8, dtype):
     g = torch.Generator(device=cuda).manual_seed(3)
     R, H, K, U = 4, 3, 5, 256
-    q = torch.randn(R, H, K, 64, generator=g, device=cuda)
+    q = torch.randn(R, H, K, 64, generator=g, device=cuda).to(dtype)
     if int8:
         kv, scales = _cuda_int8(g, R, H, U, cuda)
     else:
-        kv, scales = torch.randn(R, H, U, 128, generator=g, device=cuda), None
+        kv, scales = torch.randn(R, H, U, 128, generator=g, device=cuda).to(dtype), None
     mask = _cuda_mask(g, R, K, U, cuda)
     lo = torch.tensor([0, 7, 64, 200], dtype=torch.int32, device=cuda)
     hi = torch.tensor([1, 130, 64, 256], dtype=torch.int32, device=cuda)
     got = flash_decode(q, kv, mask, hi, scales=scales, u_lo=lo)
     want = flash_decode_ref(q, kv, mask, hi, scales=scales, u_lo=lo)
-    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got, want, atol=KERNEL_TOL[dtype], rtol=0)
     # Carry: [0, 100) then [100, 256) resumed equals one call over [0, 256).
     part = flash_decode(q, kv, mask, 100, scales=scales, return_carry=True)
     part_ref = flash_decode_ref(q, kv, mask, 100, scales=scales, return_carry=True)
-    for a, b in zip(part, part_ref):
-        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
+    _check_carry(part, part_ref, dtype)
     two = flash_decode(q, kv, mask, U, scales=scales, u_lo=100, carry=part)
     torch.testing.assert_close(two, flash_decode_ref(q, kv, mask, U, scales=scales),
-                               atol=1e-4, rtol=0)
+                               atol=KERNEL_TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [1, 5, 8])
+@pytest.mark.parametrize("int8", [False, True])
+def test_flash_decode_kernel_at_fragment_edges(cuda, dtype, K, int8):
+    """Bounds that end inside, at and past a 16-slot mma fragment and a
+    32-slot warp chunk, as host values and per row, and the carry split
+    there; 1 to 8 queries."""
+    g = torch.Generator(device=cuda).manual_seed(20 + K + 2 * int8)
+    R, H, U = 6, 5, 256
+    q = torch.randn(R, H, K, 64, generator=g, device=cuda).to(dtype)
+    if int8:
+        kv, scales = _cuda_int8(g, R, H, U, cuda)
+    else:
+        kv, scales = torch.randn(R, H, U, 128, generator=g, device=cuda).to(dtype), None
+    mask = _cuda_mask(g, R, K, U, cuda)
+    for lo, hi in ((0, 1), (0, 15), (0, 17), (0, 215), (15, 17), (17, 215), (31, 33)):
+        got = flash_decode(q, kv, mask, hi, scales=scales, u_lo=lo)
+        want = flash_decode_ref(q, kv, mask, hi, scales=scales, u_lo=lo)
+        torch.testing.assert_close(got.float(), want.float(), atol=KERNEL_TOL[dtype], rtol=0,
+                                   msg=lambda m: f"[{lo}, {hi}): {m}")
+    lo = torch.tensor([0, 1, 14, 16, 17, 100], dtype=torch.int32, device=cuda)
+    hi = torch.tensor([1, 15, 17, 33, 215, 101], dtype=torch.int32, device=cuda)
+    got = flash_decode(q, kv, mask, hi, scales=scales, u_lo=lo)
+    want = flash_decode_ref(q, kv, mask, hi, scales=scales, u_lo=lo)
+    torch.testing.assert_close(got.float(), want.float(), atol=KERNEL_TOL[dtype], rtol=0)
+    part = flash_decode(q, kv, mask, 17, scales=scales, return_carry=True)
+    _check_carry(part, flash_decode_ref(q, kv, mask, 17, scales=scales, return_carry=True),
+                 dtype)
+    two = flash_decode(q, kv, mask, 215, scales=scales, u_lo=17, carry=part)
+    torch.testing.assert_close(two.float(),
+                               flash_decode_ref(q, kv, mask, 215, scales=scales).float(),
+                               atol=KERNEL_TOL[dtype], rtol=0)
 
 
 @pytest.mark.cuda
@@ -498,6 +586,35 @@ def test_flash_decode_two_phase_kernel_matches_twin(cuda, dtype, shared_int8, li
         want = flash_decode_two_phase_ref(*args, shared_scales=sh_s, live_scales=lv_s)
         torch.testing.assert_close(got.float(), want.float(), atol=KERNEL_TOL[dtype], rtol=0)
     assert flash_decode_two_phase.launches == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shared_int8,live_int8",
+                         [(False, False), (True, False), (False, True), (True, True)])
+def test_flash_decode_two_phase_kernel_at_xl_heads(cuda, dtype, shared_int8, live_int8):
+    """GPT-2 XL's 25 heads, beam 5, per-row shared lengths and live bounds
+    that end inside and at 16-slot fragments."""
+    g = torch.Generator(device=cuda).manual_seed(12 + 2 * shared_int8 + live_int8)
+    R, H, K = 6, 25, 5
+    q = torch.randn(R, H, K, 64, generator=g, device=cuda).to(dtype)
+
+    def region(int8, n):
+        if int8:
+            return _cuda_int8(g, R, H, n, cuda)
+        return torch.randn(R, H, n, 128, generator=g, device=cuda).to(dtype), None
+
+    sh, sh_s = region(shared_int8, 128)
+    lv, lv_s = region(live_int8, 384)
+    sh_mask, lv_mask = _cuda_mask(g, R, K, 128, cuda), _cuda_mask(g, R, K, 384, cuda)
+    c = torch.tensor([1, 15, 16, 17, 64, 128], dtype=torch.int32, device=cuda)
+    lv_lo = torch.tensor([0, 15, 17, 1, 100, 0], dtype=torch.int32, device=cuda)
+    for lv_valid in (torch.tensor([1, 17, 33, 215, 101, 384], dtype=torch.int32, device=cuda),
+                     215):
+        args = (q, sh, sh_mask, lv, lv_mask, c, lv_lo, lv_valid)
+        got = flash_decode_two_phase(*args, shared_scales=sh_s, live_scales=lv_s)
+        want = flash_decode_two_phase_ref(*args, shared_scales=sh_s, live_scales=lv_s)
+        torch.testing.assert_close(got.float(), want.float(), atol=KERNEL_TOL[dtype], rtol=0)
 
 
 @pytest.mark.cuda

@@ -277,7 +277,8 @@ def cuda():
 
 
 # fp32: another summation order (1e-4 abs); bf16: the twin rounds the
-# softmax weights to bf16 and the kernels keep them fp32 (2e-2 abs).
+# softmax weights to bf16 against the row's max, the auto kernel against
+# each warp's running max, and the manual kernel keeps them fp32 (2e-2 abs).
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -324,6 +325,26 @@ def test_auto_kernel_tile_major_matches_twin(cuda, dtype):
         want = flash_decode_ref(q, kv, mask, hi, u_lo=lo)
         torch.testing.assert_close(got.float(), want.float(), atol=KERNEL_TOL[dtype], rtol=0)
     assert flash_decode.manual_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [1, 5, 8])
+def test_auto_kernel_tile_major_fragment_straddles_tiles(cuda, dtype, K):
+    """80-slot layout tiles: the kernel's 16-slot fragments and 32-slot
+    chunks straddle slots 80 and 160; bounds end inside fragments."""
+    g = torch.Generator(device=cuda).manual_seed(30 + K)
+    q, kv, kv5, mask = _cuda_case(g, 6, 3, K, 240, 80, dtype, cuda)
+    for lo, hi in ((0, 1), (0, 15), (0, 17), (0, 81), (70, 95), (79, 161), (0, 240)):
+        got = flash_decode(q, kv5, mask, hi, u_lo=lo, manual=False)
+        want = flash_decode_ref(q, kv, mask, hi, u_lo=lo)
+        torch.testing.assert_close(got.float(), want.float(), atol=KERNEL_TOL[dtype], rtol=0,
+                                   msg=lambda m: f"[{lo}, {hi}): {m}")
+    lo = torch.tensor([0, 1, 15, 64, 79, 150], dtype=torch.int32, device=cuda)
+    hi = torch.tensor([1, 17, 81, 96, 161, 240], dtype=torch.int32, device=cuda)
+    got = flash_decode(q, kv5, mask, hi, u_lo=lo, manual=False)
+    torch.testing.assert_close(got.float(), flash_decode_ref(q, kv, mask, hi, u_lo=lo).float(),
+                               atol=KERNEL_TOL[dtype], rtol=0)
 
 
 @pytest.mark.cuda
