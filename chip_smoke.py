@@ -16,7 +16,7 @@ Phases (any failure exits non-zero before the last line):
    b256 and ViT-B/32 b512 shapes, odd batches, test-tiny's width 64 and a
    batch that does not start 16-byte aligned, with and without bias
    (within one bf16 ulp of the largest output, 2^-7·max|ref|); the
-   manual-pipeline decode kernel (ring depth S = 2 and 3) on the strided
+   manual-pipeline decode kernel (ring depth S = 2, 3 and 4) on the strided
    and the tile-major cache, and the auto kernel on the tile-major cache,
    at beam R = 128 (H = 12, K = 5, U = 384, u = 64), sampling R = 160
    (K = 1, U = 80, u = 80: the kernel's 64-slot tiles straddle the
@@ -26,7 +26,10 @@ Phases (any failure exits non-zero before the last line):
    fragments and 32-slot warp chunks (1, 15, 16, 17, 31, 33, 64, 65, 129,
    215; host and per-row; the carry split at 100), K = 1, 5 and 8 at
    H = 25, bf16/fp32 and int8 caches, the tile-major cache of 80-slot
-   tiles, and the four int8/bf16 region mixes;
+   tiles, and the four int8/bf16 region mixes; the manual kernel at the
+   same bounds (S = 2, 3 and 4, both layouts), and over a cache and a mask
+   that hold NaN outside each row's bounds (finite, and equal to the twin
+   on the clean ones);
 3. the captioning slice at full width (CLIP ViT-B/32, the 8-layer
    transformer mapper, GPT-2 124M) with seeded weights, through the public
    entry points: save an ``.npz`` + YAML, ``load(..., device="cuda")``,
@@ -78,9 +81,9 @@ Phases (any failure exits non-zero before the last line):
    (``mantm``); at b96 bf16 each form runs with its counts set to 0 just
    before (the manual forms must launch the manual kernel, the others
    must not), with captions/s and peak memory as information; and the
-   manual kernel (S = 2, 3) beside the auto kernel, on both layouts, the
+   manual kernel (S = 2, 3, 4) beside the auto kernel, on both layouts, the
    twin and SDPA on the strided view, at R = 128 and R = 96, with the
-   bound;
+   bound, its design and its time over the auto kernel's;
 8. the preprocess stage at CLIP ViT-L/14 (seeded weights) through
    ``clipcap_tpu_torch.preprocess``'s entry point, batch 256, on 1,024
    seeded noise JPEGs of two sizes with ``.txt`` captions in two output
@@ -104,7 +107,10 @@ Phases (any failure exits non-zero before the last line):
    every metric present and finite, the manual kernel and
    ``sdpa_packed`` launched; then fp32 ``--top-k 1`` predictions equal
    with the two switches on and off.  Information: generation samples/s
-   and scoring seconds.
+   and scoring seconds, a ``torch.profiler`` breakdown of one generation
+   batch's decode, and the manual kernel at that decode's shape (R = 160,
+   H = 12, K = 1, one 80-slot tile) beside the auto kernel, the twin and
+   SDPA, with the bound.
 
 Every kernel's row carries its bound (bytes over 3.35 TB/s or operations
 over the data sheet's peak, whichever is larger) and the time of one
@@ -113,8 +119,9 @@ clocks: ``ms`` is CUDA events around 20 back-to-back calls (``cuda_ms``:
 where a kernel is shorter than its wrapper's host time it reads the host),
 ``device_ms`` the mean kernel duration per call that ``torch.profiler``
 records (``device_ms``); the decode rows (phase 4a row 1, phase 7d's int8
-and two-phase rows, phase 7f's tile-major and manual rows) give both, for
-the kernel, the twin and the library call.
+and two-phase rows, phase 7f's tile-major and manual rows, phase 9's
+eval-shape manual row) give both, for the kernel, the twin and the
+library call.
 
 Output: one line per finding, then the kernels as one JSON object, then the
 card's ``name, power.limit``, then ``{"ok": true, "device": {...}}``.
@@ -211,11 +218,14 @@ def device_us(e) -> float:
 
 
 def device_ms(fn, iters: int = 20):
-    """Mean device time of one ``fn()`` call: the CUPTI durations of every
-    kernel that ``torch.profiler`` records over ``iters`` calls after
-    warm-up, summed and divided by ``iters``.  Unlike ``cuda_ms`` it leaves
-    out the host's gaps between launches.  A trace that comes back without
-    device events is taken again, up to three times; None if none has any."""
+    """Mean device time of one ``fn()`` call from the CUPTI durations that
+    ``torch.profiler`` records over ``iters`` calls after warm-up: each
+    kernel's mean over the instances the trace holds, times its launches
+    per call (its count over ``iters``, at least 1), summed.  A trace can
+    drop events, and a sum over ``iters`` would then read low (it read
+    0.0188 ms for a 0.037 ms kernel).  Unlike ``cuda_ms`` it leaves out the
+    host's gaps between launches.  A trace that comes back without device
+    events is taken again, up to three times; None if none has any."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -227,11 +237,12 @@ def device_ms(fn, iters: int = 20):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(device_us(e) for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        call_us = sum(device_us(e) / e.count * max(1, round(e.count / iters))
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA and e.count)
         del prof
-        if total_us > 0:
-            return total_us / iters / 1e3
+        if call_us > 0:
+            return call_us / 1e3
     return None
 
 
@@ -314,7 +325,7 @@ MANUAL_SHAPES = (("beam", 128, 12, K, 384, 64), ("sample", 160, 12, 1, 80, 80),
 
 
 def check_manual_kernels(dev, g, dtype, compare):
-    """Phase 2, the manual-pipeline kernel (ring depth S = 2 and 3) and the
+    """Phase 2, the manual-pipeline kernel (ring depth S = 2, 3 and 4) and the
     auto kernel's tile-major form against the twin, on the strided and the
     tile-major cache, at the decode loops' masks and at the u_valid
     boundaries of the kernel's 64-slot tiles and of the layout's tiles."""
@@ -342,7 +353,7 @@ def check_manual_kernels(dev, g, dtype, compare):
             for form, kvx in layouts:
                 want = flash_decode_ref(q, kvx, mask, u_valid)
                 shape = f"{label} R={R} H={H} K={Kq} U={U} u={u} {form} u_valid={u_valid}"
-                for slots in ("2", "3"):
+                for slots in MANUAL_SLOTS:
                     with mock.patch.dict(os.environ, {"CLIPCAP_FLASH_MANUAL_SLOTS": slots}):
                         got = flash_decode(q, kvx, mask, u_valid, manual=True)
                     compare("flash_decode_manual", f"{shape} S={slots}", dtype, got, want)
@@ -357,11 +368,13 @@ EDGES = (1, 15, 16, 17, 31, 33, 64, 65, 129, 215)
 
 
 def check_fragment_edges(dev, g, dtype, compare):
-    """Phase 2, the auto and two-phase kernels at slot bounds that cut an
-    mma fragment or a warp's chunk: K = 1, 5 and 8 queries; bf16/fp32 and
-    int8 caches at GPT-2 XL's 25 heads, host bounds and per-row ``[R]``
-    bounds, and the carry over [0, 100) resumed to the end; the tile-major
-    cache of 80-slot tiles (a fragment straddles slot 80); the four
+    """Phase 2, the auto, manual and two-phase kernels at slot bounds that
+    cut an mma fragment or a warp's chunk: K = 1, 5 and 8 queries; bf16/fp32
+    and int8 caches at GPT-2 XL's 25 heads, host bounds and per-row ``[R]``
+    bounds, and the carry over [0, 100) resumed to the end; the manual
+    kernel at S = 2, 3 and 4 on both layouts, also over NaN outside each
+    row's bounds (``check_manual_edges``); the tile-major cache of 80-slot
+    tiles (a fragment straddles slot 80), auto and manual; the four
     int8/bf16 region mixes of the two-phase kernel with per-row edges."""
     from clipcap_tpu_torch.ops.flash_decode import (flash_decode, flash_decode_ref,
                                                     flash_decode_two_phase,
@@ -401,13 +414,20 @@ def check_fragment_edges(dev, g, dtype, compare):
             compare(name, f"{label} carry [0, 100) resumed over [100, {U})", dtype,
                     flash_decode(q, kv, mask, U, scales=scales, u_lo=100, carry=part),
                     flash_decode_ref(q, kv, mask, U, scales=scales))
+            if not int8:
+                check_manual_edges(q, kv, mask, lo, hi, label, dtype, compare)
         kv = torch.randn(R, H, 240, 128, generator=g, device=dev).to(dtype)
         kv5 = tile_major(kv, 80)
         mask = mask[..., :240].contiguous()
         for b in (1, 15, 17, 79, 81, 95, 161, 240):
+            want = flash_decode_ref(q, kv, mask, b)
             compare("flash_decode_tile_major", f"edges R={R} H={H} K={Kq} u=80 u_valid={b}",
-                    dtype, flash_decode(q, kv5, mask, b, manual=False),
-                    flash_decode_ref(q, kv, mask, b))
+                    dtype, flash_decode(q, kv5, mask, b, manual=False), want)
+            for slots in MANUAL_SLOTS:
+                with mock.patch.dict(os.environ, {"CLIPCAP_FLASH_MANUAL_SLOTS": slots}):
+                    compare("flash_decode_manual",
+                            f"edges R={R} H={H} K={Kq} u=80 u_valid={b} S={slots}", dtype,
+                            flash_decode(q, kv5, mask, b, manual=True), want)
         for sh_int8, lv_int8 in ((False, False), (True, True), (True, False), (False, True)):
             sh, sh_s = region(g, R, H, 128, dtype, sh_int8, dev)
             lv, lv_s = region(g, R, H, 384 if lv_int8 else 336, dtype, lv_int8, dev)
@@ -423,6 +443,42 @@ def check_fragment_edges(dev, g, dtype, compare):
                     f"edges R={R} H={H} K={Kq} shared int8={sh_int8} live int8={lv_int8}",
                     dtype, flash_decode_two_phase(*args, shared_scales=sh_s, live_scales=lv_s),
                     flash_decode_two_phase_ref(*args, shared_scales=sh_s, live_scales=lv_s))
+
+
+MANUAL_SLOTS = ("2", "3", "4")       # the manual kernel's ring depths
+
+
+def check_manual_edges(q, kv, mask, lo, hi, label, dtype, compare):
+    """Phase 2, the manual-pipeline kernel at ring depths 2, 3 and 4 at the
+    chunk-cutting bounds (host, from 17, and per row ``[lo, hi)``, strided
+    and tile-major); then the same per-row bounds over a cache and a mask
+    that hold NaN outside each row's bounds, against the twin on the clean
+    ones: the output must stay finite (the kernel reads only ``[lo, hi)``)."""
+    from clipcap_tpu_torch.ops.flash_decode import flash_decode, flash_decode_ref
+
+    R, U = kv.shape[0], kv.shape[2]
+    kv5 = tile_major(kv, 64)
+    slot = torch.arange(U, device=kv.device)
+    outside = (slot < lo[:, None]) | (slot >= hi[:, None])                    # [R, U]
+    dirty = kv.masked_fill(outside[:, None, :, None], float("nan"))
+    dirty_mask = mask.masked_fill(outside[:, None, :], float("nan"))
+    cases = [(None, b) for b in EDGES] + [(17, 215), (lo, hi)]
+    for slots in MANUAL_SLOTS:
+        with mock.patch.dict(os.environ, {"CLIPCAP_FLASH_MANUAL_SLOTS": slots}):
+            for u_lo, u_valid in cases:
+                want = flash_decode_ref(q, kv, mask, u_valid, u_lo=u_lo)
+                bounds = "per-row [lo, hi)" if u_lo is lo else f"[{u_lo or 0}, {u_valid})"
+                for form, kvx in (("strided", kv), ("tile-major", kv5)):
+                    compare("flash_decode_manual", f"{label} {bounds} {form} S={slots}", dtype,
+                            flash_decode(q, kvx, mask, u_valid, u_lo=u_lo, manual=True), want)
+            want = flash_decode_ref(q, kv, mask, hi, u_lo=lo)
+            for form, kvx in (("strided", dirty), ("tile-major", tile_major(dirty, 64))):
+                got = flash_decode(q, kvx, dirty_mask, hi, u_lo=lo, manual=True)
+                if not torch.isfinite(got.float()).all():
+                    raise AssertionError(f"flash_decode_manual {label} NaN outside [lo, hi) "
+                                         f"{form} S={slots}: the output is not finite")
+                compare("flash_decode_manual", f"{label} NaN outside per-row [lo, hi) {form} "
+                        f"S={slots}", dtype, got, want)
 
 
 # fused_sdpa's phase-2 shapes: (B, H, N, causal).
@@ -657,6 +713,11 @@ def time_kernels(dev, tag: str):
         print(f"time [{tag}] fused_sdpa {label} [{B}, {H}, {N}, 64] bf16: {t}")
         del q, k, v
     return out
+
+
+def ratio(a, b):
+    """a / b where both were measured, else None."""
+    return a / b if a and b else None
 
 
 def attention_bound(B: int, N: int, D: int, causal: bool) -> dict:
@@ -1472,14 +1533,22 @@ def xl_forms(lm, prefix, tag: str):
     return out
 
 
+# The bf16 manual kernel's design, as its row records it: of the variants
+# timed side by side (PERF.md §6), the one that is built.
+MANUAL_DESIGN = ("persistent grid of two-warp blocks; each warp feeds its own ring with a "
+                 "1-D bulk copy per slot under mbarriers; tensor-core fold")
+
+
 def time_manual_kernels(dev, tag: str):
-    """Phase 7f: the manual-pipeline kernel (S = 2 and 3, strided and
+    """Phase 7f: the manual-pipeline kernel (S = 2, 3 and 4, strided and
     tile-major) beside the auto kernel (row 1, strided and tile-major), the
     twin and ``F.scaled_dot_product_attention`` on the strided view, at
     beam step 40 of GPT-2 b128 (H = 12) and GPT-2 XL b96 (H = 25), bf16,
     u_valid 215 of 384 slots; and each bound.  The kernels JSON rows are
     R = 128 S = 2 strided (the manual kernel) and R = 128 tile-major (the
-    auto kernel's tile-major form), with the rest beside them."""
+    auto kernel's tile-major form), with the rest beside them; the manual
+    row records its design and, per layout, its device time over the auto
+    kernel's in the same call (below 1: the manual kernel won)."""
     import torch.nn.functional as F
 
     from clipcap_tpu_torch.models.gpt2 import beam_mask
@@ -1498,7 +1567,7 @@ def time_manual_kernels(dev, tag: str):
         lib_mask = mask[:, None, :, :u].to(bf)
         t = {**timed(lambda: flash_decode(q, kv, mask, u, manual=False), "auto_strided_"),
              **timed(lambda: flash_decode(q, kv5, mask, u, manual=False), "auto_tile_major_")}
-        for slots in ("2", "3"):
+        for slots in MANUAL_SLOTS:
             with mock.patch.dict(os.environ, {"CLIPCAP_FLASH_MANUAL_SLOTS": slots}):
                 for form, kvx in (("strided", kv), ("tile_major", kv5)):
                     t.update(timed(lambda: flash_decode(q, kvx, mask, u, manual=True),
@@ -1513,7 +1582,13 @@ def time_manual_kernels(dev, tag: str):
                                     "library_device_ms", "bound_ms", "bound_by")}
         manual = {"ms": t["manual_S2_strided_ms"],
                   "device_ms": t["manual_S2_strided_device_ms"], **common,
-                  **{k: t[k] for k in t if k.startswith(("manual", "auto"))}}
+                  **{k: t[k] for k in t if k.startswith(("manual", "auto"))},
+                  "design": MANUAL_DESIGN,
+                  "over_auto": {form: ratio(t[f"manual_S2_{form}_device_ms"],
+                                            t[f"auto_{form}_device_ms"])
+                                for form in ("strided", "tile_major")}}
+        print(f"time [{tag}] flash_decode_manual R={R} H={H} S=2 device time over the auto "
+              f"kernel's: {manual['over_auto']}")
         tm = {"ms": t["auto_tile_major_ms"], "device_ms": t["auto_tile_major_device_ms"],
               **common, "auto_strided_ms": t["auto_strided_ms"],
               "auto_strided_device_ms": t["auto_strided_device_ms"]}
@@ -1764,6 +1839,13 @@ def run_eval_phase(dev, slice_dir: Path, workdir: Path, tag: str):
             return out
         return call
 
+    def last_call(fn, key):
+        def call(*args, **kw):
+            calls[key] = (args, kw)
+            return fn(*args, **kw)
+        return call
+
+    calls = {}
     # The main path: every count set to 0 just before, read just after.
     flash_decode.launches = flash_decode.manual_launches = sdpa_packed.launches = 0
     log = io.StringIO()
@@ -1774,7 +1856,8 @@ def run_eval_phase(dev, slice_dir: Path, workdir: Path, tag: str):
                               timed(base.generate_predictions, "generate")), \
             mock.patch.object(base, "evaluate_metrics_from_lists",
                               timed(base.evaluate_metrics_from_lists, "score")), \
-            mock.patch.object(engine, "decode", timed(engine.decode, "decode")):
+            mock.patch.object(engine, "decode",
+                              timed(last_call(engine.decode, "decode"), "decode")):
         warnings.simplefilter("ignore")               # seeded CLIP, byte tokenizer offline
         rc = base.run_eval(argv + ["--fp-precision", "16", "--save-predictions",
                                    str(workdir / "preds.json"), "--save-file",
@@ -1806,6 +1889,25 @@ def run_eval_phase(dev, slice_dir: Path, workdir: Path, tag: str):
     if launches["flash_decode_manual"] == 0 or launches["sdpa_packed"] == 0:
         raise AssertionError(f"eval: launches {launches}")
 
+    # One generation batch's decode again (the last batch's arguments),
+    # unprofiled for its time, then under the profiler; and row 4 alone at
+    # the shape this decode gives it.
+    args, kw = calls["decode"]
+
+    def decode_batch(_):
+        with mock.patch.dict(os.environ, SWITCHES_ON):
+            engine.decode(*args, **kw)
+        sync(dev)
+
+    t0 = time.perf_counter()
+    decode_batch(None)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    R = args[1].shape[0]
+    profile(decode_batch, None, batch_ms, f"eval generation batch: nucleus decode R={R}, "
+            f"{N_NEW} new tokens, switches on", tag)
+    del args, kw, calls
+    eval_row = time_manual_eval_shape(dev, R, tag)
+
     # fp32 top-k 1: the argmax path, so the switches must not move a token.
     runs = {}
     for label, env in (("on", SWITCHES_ON), ("off", SWITCHES_OFF)):
@@ -1823,7 +1925,36 @@ def run_eval_phase(dev, slice_dir: Path, workdir: Path, tag: str):
     if runs["on"] != runs["off"] or len(runs["on"]) != EVAL_IMAGES:
         raise AssertionError("eval: fp32 top-k 1 predictions differ between the switches")
     print(f"eval: phase took {time.perf_counter() - t_phase:.1f} s")
-    return launches["flash_decode_manual"]
+    return launches["flash_decode_manual"], eval_row
+
+
+def time_manual_eval_shape(dev, R: int, tag: str):
+    """Phase 9b: the manual-pipeline kernel (S = 2) at the eval decode's
+    shape: R rows of K = 1, GPT-2 124M's 12 heads, one 80-slot tile-major
+    tile, the causal mask at position 40 (u_valid 41), bf16; beside the
+    auto kernel, the twin and SDPA, with the bound."""
+    import torch.nn.functional as F
+
+    from clipcap_tpu_torch.models.gpt2 import causal_bias
+    from clipcap_tpu_torch.ops.flash_decode import flash_decode, flash_decode_ref
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    bf, H, U, pos = torch.bfloat16, 12, 80, 40
+    q = torch.randn(R, H, 1, 64, generator=g, device=dev).to(bf)
+    kv = torch.randn(R, H, U, 128, generator=g, device=dev).to(bf)
+    kv5 = tile_major(kv, U)
+    mask = causal_bias(1, U, pos, device=dev)[:, 0]
+    u = pos + 1
+    t = {**timed(lambda: flash_decode(q, kv5, mask, u, manual=True)),
+         **timed(lambda: flash_decode(q, kv5, mask, u, manual=False), "auto_"),
+         **timed(lambda: flash_decode_ref(q, kv, mask, u), "plain_"),
+         **timed(lambda: F.scaled_dot_product_attention(
+             q, kv[:, :, :u, :64], kv[:, :, :u, 64:], attn_mask=mask[:, None, :, :u].to(bf)),
+             "library_"),
+         **decode_bound(q, [(R * u, 256, u)], bf)}
+    print(f"time [{tag}] flash_decode_manual eval shape R={R} H={H} K=1 u=80 tile-major "
+          f"u_valid={u} bf16 S=2: {t}")
+    return t
 
 
 def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict) -> list:
@@ -1870,7 +2001,7 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
     print(host_memory())
     eval_dir = workdir / "eval"
     eval_dir.mkdir()
-    manual_launches = run_eval_phase(dev, slice_dir, eval_dir, name_limit)
+    manual_launches, eval_row = run_eval_phase(dev, slice_dir, eval_dir, name_limit)
     print(host_memory())
 
     def row(name, source, replaces, **numbers):
@@ -1897,7 +2028,7 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
             **times["fused_sdpa"], vit_b32_b512=times["fused_sdpa_vit_b32"]),
         row("flash_decode_manual", "flash_decode.cu", "clipcap_tpu/ops/flash_decode.py:576",
             launches=manual_launches, max_abs_err=errors["flash_decode_manual"],
-            **xl_rows["flash_decode_manual"]),
+            **xl_rows["flash_decode_manual"], eval_r160=eval_row),
         row("flash_decode_tile_major", "flash_decode.cu", "clipcap_tpu/ops/flash_decode.py:310",
             max_abs_err=errors["flash_decode_tile_major"],
             **xl_rows["flash_decode_tile_major"]),

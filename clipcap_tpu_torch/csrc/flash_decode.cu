@@ -7,8 +7,9 @@
 //     per-row slot bounds [lo, hi), optional online-softmax carry in/out;
 //     the bf16/fp32 cache strided or tile-major;
 //   * flash_decode(manual=True) (_manual_call -> _manual_kernel): the same
-//     function over a bf16/fp32 cache, strided or tile-major, with the tile
-//     walk fed by a ring of S asynchronous copies in flight;
+//     function over a bf16/fp32 cache, strided or tile-major, with the walk
+//     over the slots inside the kernel and S copies in flight ahead of it
+//     (the TPU kernel's make_async_copy ring under DMA semaphores);
 //   * flash_decode_two_phase (_fused_call -> _fused_kernel): one softmax
 //     over a consolidated shared-prefix cache, then the live beam cache,
 //     each region bf16/fp32 or int8.
@@ -66,17 +67,39 @@
 // b96 the int8 form holds 5 blocks an SM (45 KB of ring, <= 96 registers),
 // the bf16 form 3 (75 KB).
 //
+// bf16 q, manual form (flash_decode_manual_mma_kernel): Hopper's form of
+// the TPU kernel's copy ring, with the auto kernel's fold.  Bytes bound it
+// too, but at these shapes each (row, head) reads only ~55 KB, so what a
+// block per item pays besides the bytes (bounds, q, the first copy's round
+// trip, the merge) costs as much as the copies.  So: (1) the copy engine
+// moves the slots, not the threads: a warp asks for a 32-slot chunk with
+// one 256-byte bulk copy a lane (cp.async.bulk into a row padded to 272
+// bytes, so that the fragment reads stay free of bank conflicts), counted
+// on the stage's mbarrier, and cp.asyncs the chunk's mask values (4 bytes
+// each: a mask row starts at any slot).  Each warp is its own producer,
+// with a ring of S stages (S = 2 to 4) and S - 1 chunks in flight while it
+// folds one: a producer warp that served the block's warps in turn made
+// the ring wait on it (PERF.md §6).  (2) The fold is the auto kernel's
+// (fold_chunk: mma.sync, the weights rounded to bf16 for P.V, one online
+// softmax per warp, no block-wide barrier in the walk), reading the padded
+// rows through a template of the read position.  (3) The grid is
+// persistent: as many two-warp blocks as the card holds at once walk the
+// (row, head) items in a fixed stride, and each warp's copies run on into
+// the next item while the block merges and writes the current one.
+// (4) Bounds stay exact: lanes past a row's bound copy nothing, and their
+// stale rows weigh 0 and are left out of the value product; a warp fences
+// its reads of a stage from the copy engine's next writes to it.
+//
 // fp32 q keeps the CUDA-core kernels (the fp32 parity gates rest on them):
 // the auto kernel stages a tile of 64 slots with loads through registers
 // and computes on it thread-per-slot before it asks for the next.  The
-// manual kernel (bf16 and fp32) keeps S - 1 tiles of 16-byte cp.async
-// copies in flight while it computes (tile t + S - 1 is started before
-// tile t is computed), in a ring of S shared-memory stages, each slot's
-// 16-byte chunks XOR-swizzled so that both compute phases read them
-// without bank conflicts; its softmax weights stay fp32.  A kernel tile or
-// chunk may straddle two layout tiles of the tile-major cache: every copy
-// computes its slot's own address.  TMA, wgmma and a split over the slot
-// axis are later work.
+// fp32 manual kernel keeps S - 1 tiles of 16-byte cp.async copies in
+// flight while it computes (tile t + S - 1 is started before tile t is
+// computed), in a ring of S shared-memory stages, each slot's 16-byte
+// chunks XOR-swizzled so that both compute phases read them without bank
+// conflicts.  A kernel tile or chunk may straddle two layout tiles of the
+// tile-major cache: every copy computes its slot's own address.  wgmma and
+// a split over the slot axis are later work.
 #include "common.cuh"
 
 namespace clipcap {
@@ -166,15 +189,16 @@ template <typename TC> struct Padded {
   }
 };
 
-// A ring stage of the manual kernel: slot s at s * kSlot bytes, its 16-byte
-// chunk c at position c ^ (s & 7).  The logits read one slot per thread in
-// 16-byte vectors: the 8 threads of a quarter warp hold 8 slots with 8
-// different low bits, so they hit 8 different chunk columns.  The values
-// read one slot per warp: the swizzle only permutes chunks inside an
+// A ring stage of the fp32 manual kernel: slot s at s * kSlot bytes, its
+// 16-byte chunk c at position c ^ (s & 7).  The logits read one slot per
+// thread in 16-byte vectors: the 8 threads of a quarter warp hold 8 slots
+// with 8 different low bits, so they hit 8 different chunk columns.  The
+// values read one slot per warp: the swizzle only permutes chunks inside an
 // aligned group of 8, so 32 neighbouring elements stay on 32 banks.
 template <typename T> struct Swizzled {
-  static constexpr int kSlot = kRow * (int)sizeof(T);       // 256 or 512 bytes
-  static constexpr int kChunks = kSlot / 16;                 // 16 or 32
+  static_assert(sizeof(T) == 4, "bf16 q takes the tensor-core manual kernel");
+  static constexpr int kSlot = kRow * (int)sizeof(T);       // 512 bytes
+  static constexpr int kChunks = kSlot / 16;                 // 32
   static constexpr int kPer = 16 / (int)sizeof(T);           // elements per chunk
   __device__ static int chunk(int s, int c) { return s * kSlot + ((c ^ (s & 7)) << 4); }
   __device__ static float dot_k(const unsigned char* tile, int s, const float* q) {
@@ -183,17 +207,8 @@ template <typename T> struct Swizzled {
     for (int c = 0; c < kChunks / 2; ++c) {
       const uint4 v = *reinterpret_cast<const uint4*>(tile + chunk(s, c));
       const float* qc = q + c * kPer;
-      if constexpr (sizeof(T) == 2) {
-        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-          dot += qc[2 * i] * f.x + qc[2 * i + 1] * f.y;
-        }
-      } else {
-        dot += qc[0] * __uint_as_float(v.x) + qc[1] * __uint_as_float(v.y) +
-               qc[2] * __uint_as_float(v.z) + qc[3] * __uint_as_float(v.w);
-      }
+      dot += qc[0] * __uint_as_float(v.x) + qc[1] * __uint_as_float(v.y) +
+             qc[2] * __uint_as_float(v.z) + qc[3] * __uint_as_float(v.w);
     }
     return dot;
   }
@@ -388,8 +403,8 @@ __device__ __forceinline__ void start_tile(const Segment& seg, int r, int h, int
   }
 }
 
-// The manual-pipeline kernel: one block per (row, head), a ring of S
-// stages of kTile slots in dynamic shared memory.  Before tile t is
+// The manual-pipeline kernel for fp32 q: one block per (row, head), a ring
+// of S stages of kTile slots in dynamic shared memory.  Before tile t is
 // computed, tile t + S - 1 is started into the stage tile t - 1 left; every
 // iteration commits one cp.async group (empty past the last tile), so
 // waiting for all but the newest S - 2 groups means tile t has landed.
@@ -465,15 +480,29 @@ __device__ __forceinline__ uint32_t widen2(uint32_t biased, int i, int j) {
 //          <-> dh 8g + 2mt (+ 1): thread g reads the V values dh
 //          8g .. 8g + 7 of each of its four slots as one run.
 // Slot s of a chunk sits at s * kSlot, its 16-byte pieces XOR-swizzled so
-// that every fragment read of a warp is free of bank conflicts (pos()).
+// that every fragment read of a warp is free of bank conflicts (pos()); the
+// manual kernel's bf16 rows are padded instead (PaddedRows).
 template <typename TC> struct Frag;
 
-// bf16 slot: 256 bytes, piece c (0-7 K, 8-15 V) at c ^ (s & 7).  A quarter
-// warp's K reads (slots 8j + g, pieces 2t and 2t + 1) and V reads (slots
-// 2t + e, piece 8 + g) fall on 8 different 16-byte bank groups.
-template <> struct Frag<bf16> {
+// Where piece c (0-7 K, 8-15 V) of bf16 slot s sits in a staged chunk.
+// cp.async places each piece, so the auto kernel swizzles them: c ^ (s & 7)
+// in a 256-byte row.  A bulk copy places a whole slot, so the manual kernel
+// pads each row to 272 bytes (17 bank groups of 16 bytes).  Either way a
+// quarter warp's K reads (slots 8j + g, pieces 2t and 2t + 1) and V reads
+// (slots 2t + e, piece 8 + g) fall on 8 different 16-byte bank groups.
+struct SwizzledRows {
+  static constexpr int kStride = 256;
+  __device__ static int pos(int s, int c) { return s * kStride + ((c ^ (s & 7)) << 4); }
+};
+struct PaddedRows {
+  static constexpr int kStride = 272;
+  __device__ static int pos(int s, int c) { return s * kStride + (c << 4); }
+};
+
+template <typename Rows> struct FragBf16 {
   static constexpr int kSlot = 256, kPieces = 16;
-  __device__ static int pos(int s, int c) { return s * kSlot + ((c ^ (s & 7)) << 4); }
+  static constexpr bool kInt8 = false;
+  __device__ static int pos(int s, int c) { return Rows::pos(s, c); }
   // B fragments of q.k^T against slot s: kb[2kc], kb[2kc + 1] of k-step kc.
   __device__ static void k_frag(const unsigned char* st, int s, int t, uint32_t (&kb)[8]) {
     const uint4 a = *reinterpret_cast<const uint4*>(st + pos(s, 2 * t));
@@ -484,13 +513,20 @@ template <> struct Frag<bf16> {
   // V values of the 16 slots from s0 as bf16 pairs: vb[e][0] holds dh
   // 8g + e of slots s0 + 2t + {0, 1}, vb[e][1] of slots s0 + 8 + 2t + {0, 1};
   // m-tile mt of V^T takes {vb[2mt][0], vb[2mt + 1][0], vb[2mt][1],
-  // vb[2mt + 1][1]} as its A fragment.
+  // vb[2mt + 1][1]} as its A fragment.  kGuard: slots from n on read as
+  // zeros (their rows were never written in this round, and a weight of 0
+  // times a stale NaN is NaN).
+  template <bool kGuard = false>
   __device__ static void v_frag(const unsigned char* st, int s0, int g, int t,
-                                uint32_t (&vb)[8][2]) {
+                                uint32_t (&vb)[8][2], int n = 0) {
     uint4 v[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      v[i] = *reinterpret_cast<const uint4*>(st + pos(s0 + 2 * t + (i & 1) + (i >> 1) * 8, 8 + g));
+    for (int i = 0; i < 4; ++i) {
+      const int s = s0 + 2 * t + (i & 1) + (i >> 1) * 8;
+      v[i] = *reinterpret_cast<const uint4*>(st + pos(s, 8 + g));
+      if constexpr (kGuard)
+        if (s >= n) v[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const uint32_t a[4] = {v[2 * i].x, v[2 * i].y, v[2 * i].z, v[2 * i].w};
@@ -501,6 +537,7 @@ template <> struct Frag<bf16> {
     }
   }
 };
+template <> struct Frag<bf16> : FragBf16<SwizzledRows> {};
 
 // int8 slot: 128 bytes, piece c (0-3 K, 4-7 V) at c ^ 2((s >> 1) & 3) ^ 4(s & 1).
 // A quarter warp's K reads (16 bytes: slots 8j + g, piece t) and a half
@@ -508,6 +545,7 @@ template <> struct Frag<bf16> {
 // fall on distinct banks.  Values widen to bf16 in registers, exactly.
 template <> struct Frag<int8_t> {
   static constexpr int kSlot = 128, kPieces = 8;
+  static constexpr bool kInt8 = true;
   __device__ static int pos(int s, int c) {
     return s * kSlot + ((c ^ (((s >> 1) & 3) << 1) ^ ((s & 1) << 2)) << 4);
   }
@@ -611,16 +649,25 @@ __device__ __forceinline__ void start_chunk(const Segment& seg, int r, int h, in
 struct WarpState {
   float m, l;
   float o[4][4];
+  __device__ void reset() {
+    m = -INFINITY;
+    l = 0.f;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) o[mt][0] = o[mt][1] = o[mt][2] = o[mt][3] = 0.f;
+  }
 };
 
 // Fold one staged chunk of n slots into the warp's softmax.  qa holds q's
-// A fragments (qa[2kc], qa[2kc + 1] of k-step kc; row g).
-template <typename TC, typename S>
+// A fragments (qa[2kc], qa[2kc + 1] of k-step kc; row g).  F reads the
+// stage (Frag<TC>, or FragBf16<PaddedRows> for the manual kernel), S
+// places its mask rows and scales; kGuard zeroes the V values of slots
+// from n on, where the stage holds what an earlier round left there
+// (cp.async zero-fills them, a bulk copy does not).
+template <typename F, typename S, bool kGuard = false>
 __device__ __forceinline__ void fold_chunk(const unsigned char* st, int n, int K, float scale,
                                            const uint32_t (&qa)[8], int g, int t,
                                            WarpState& ws) {
-  using F = Frag<TC>;
-  constexpr bool kInt8 = sizeof(TC) == 1;
+  constexpr bool kInt8 = F::kInt8;
   constexpr int kTiles = kChunk / 8;
   const float* ms = reinterpret_cast<const float*>(st + S::kMask) + g * kMaskLd;
   const float* sk = reinterpret_cast<const float*>(st + S::kSk);
@@ -695,12 +742,94 @@ __device__ __forceinline__ void fold_chunk(const unsigned char* st, int n, int K
 #pragma unroll
   for (int kk = 0; kk < kTiles / 2; ++kk) {
     uint32_t vb[8][2];
-    F::v_frag(st, 16 * kk, g, t, vb);
+    if constexpr (kGuard)
+      F::template v_frag<true>(st, 16 * kk, g, t, vb, n);
+    else
+      F::v_frag(st, 16 * kk, g, t, vb);
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt) {
       const uint32_t a[4] = {vb[2 * mt][0], vb[2 * mt + 1][0], vb[2 * mt][1],
                              vb[2 * mt + 1][1]};
       mma_bf16(ws.o[mt], a, pa[kk][0], pa[kk][1]);
+    }
+  }
+}
+
+// q's A fragments for row g of (row, head) rh (zero for g >= K): dh
+// 16t .. 16t + 15.
+__device__ __forceinline__ void load_q(const bf16* q, size_t rh, int K, int g, int t,
+                                       uint32_t (&qa)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) qa[i] = 0u;
+  if (g < K) {
+    const uint4* qp = reinterpret_cast<const uint4*>(q + (rh * K + g) * kDh + 16 * t);
+    const uint4 a = qp[0], b = qp[1];
+    qa[0] = a.x; qa[1] = a.y; qa[2] = a.z; qa[3] = a.w;
+    qa[4] = b.x; qa[5] = b.y; qa[6] = b.z; qa[7] = b.w;
+  }
+}
+
+// A warp's (acc, m, l) per query into part[warp][kMaxK][kPart] (a quad's
+// shares of l summed first).
+constexpr int kPart = kDh + 2;
+__device__ __forceinline__ void store_partial(float* part, int warp, WarpState& ws, int K, int g,
+                                              int t) {
+  ws.l += __shfl_xor_sync(0xffffffffu, ws.l, 1);
+  ws.l += __shfl_xor_sync(0xffffffffu, ws.l, 2);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (2 * t + e < K) {
+      float* p = part + (warp * kMaxK + 2 * t + e) * kPart + 8 * g;
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        p[2 * mt] = ws.o[mt][e];
+        p[2 * mt + 1] = ws.o[mt][2 + e];
+      }
+    }
+  }
+  if (g < K && t == 0) {
+    part[(warp * kMaxK + g) * kPart + kDh] = ws.m;
+    part[(warp * kMaxK + g) * kPart + kDh + 1] = ws.l;
+  }
+}
+
+// One thread (tid of n) per output element of (row, head) rh brings the
+// warps' partials and the carry in to the common max: m = max, l and acc
+// summed with weights exp(m_w - m).  Writes the output, or with acc_out
+// non-null the carry out.
+template <int kWarps>
+__device__ __forceinline__ void merge_partials(const float* part, size_t rh, int K, int tid, int n,
+                                               bf16* out, const float* m_in, const float* l_in,
+                                               const float* acc_in, float* m_out, float* l_out,
+                                               float* acc_out) {
+  for (int i = tid; i < K * kDh; i += n) {
+    const int k = i / kDh, d = i - k * kDh;
+    const size_t ml = rh * K + k, at = ml * kDh + d;
+    float m = m_in ? m_in[ml] : -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, part[(w * kMaxK + k) * kPart + kDh]);
+    const float m_use = m == -INFINITY ? 0.f : m;
+    float l = 0.f, acc = 0.f;
+    if (m_in) {
+      const float a = expf(m_in[ml] - m_use);
+      l = l_in[ml] * a;
+      acc = acc_in[at] * a;
+    }
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float* p = part + (w * kMaxK + k) * kPart;
+      const float a = expf(p[kDh] - m_use);
+      l += p[kDh + 1] * a;
+      acc += p[d] * a;
+    }
+    if (acc_out) {
+      acc_out[at] = acc;
+      if (d == 0) {
+        m_out[ml] = m;
+        l_out[ml] = l;
+      }
+    } else {
+      out[at] = __float2bfloat16(acc / fmaxf(l, 1e-30f));
     }
   }
 }
@@ -754,20 +883,10 @@ flash_decode_mma_kernel(const bf16* __restrict__ q, Segment s0, Segment s1,
 #pragma unroll
   for (int j = 0; j < kStages - 1; ++j) start(j);
 
-  // q's A fragments, row g (zero for g >= K): dh 16t .. 16t + 15.
-  uint32_t qa[8] = {};
-  if (g < K) {
-    const uint4* qp = reinterpret_cast<const uint4*>(q + ((size_t)rh * K + g) * kDh + 16 * t);
-    const uint4 a = qp[0], b = qp[1];
-    qa[0] = a.x; qa[1] = a.y; qa[2] = a.z; qa[3] = a.w;
-    qa[4] = b.x; qa[5] = b.y; qa[6] = b.z; qa[7] = b.w;
-  }
-
+  uint32_t qa[8];
+  load_q(q, rh, K, g, t, qa);
   WarpState ws;
-  ws.m = -INFINITY;
-  ws.l = 0.f;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) ws.o[mt][0] = ws.o[mt][1] = ws.o[mt][2] = ws.o[mt][3] = 0.f;
+  ws.reset();
   for (int j = 0; j < mine; ++j) {
     __syncwarp();                          // every lane is done with chunk j - 1's stage
     start(j + kStages - 1);
@@ -776,66 +895,19 @@ flash_decode_mma_kernel(const bf16* __restrict__ q, Segment s0, Segment s1,
     const int i = warp + j * kMmaWarps;
     const unsigned char* st = ring + (j % kStages) * S::kBytes;
     if (i < n0)
-      fold_chunk<TS, S>(st, chunk(i).n, K, scale, qa, g, t, ws);
+      fold_chunk<Frag<TS>, S>(st, chunk(i).n, K, scale, qa, g, t, ws);
     else
-      fold_chunk<TL, S>(st, chunk(i).n, K, scale, qa, g, t, ws);
+      fold_chunk<Frag<TL>, S>(st, chunk(i).n, K, scale, qa, g, t, ws);
   }
   cp_async_wait<0>();
-  ws.l += __shfl_xor_sync(0xffffffffu, ws.l, 1);
-  ws.l += __shfl_xor_sync(0xffffffffu, ws.l, 2);
 
-  // Merge: each warp's (acc, m, l) per query into the idle rings, then one
-  // thread per output element brings them and the carry in to the common
-  // max: m = max, l and acc summed with weights exp(m_w - m).
-  constexpr int kPart = kDh + 2;
+  // Merge, through the idle rings.
   __syncthreads();
   float* part = reinterpret_cast<float*>(smem);     // [kMmaWarps][kMaxK][kPart]
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    if (2 * t + e < K) {
-      float* p = part + (warp * kMaxK + 2 * t + e) * kPart + 8 * g;
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        p[2 * mt] = ws.o[mt][e];
-        p[2 * mt + 1] = ws.o[mt][2 + e];
-      }
-    }
-  }
-  if (g < K && t == 0) {
-    part[(warp * kMaxK + g) * kPart + kDh] = ws.m;
-    part[(warp * kMaxK + g) * kPart + kDh + 1] = ws.l;
-  }
+  store_partial(part, warp, ws, K, g, t);
   __syncthreads();
-  for (int i = threadIdx.x; i < K * kDh; i += kMmaThreads) {
-    const int k = i / kDh, d = i - k * kDh;
-    const size_t ml = (size_t)rh * K + k, at = ml * kDh + d;
-    float m = m_in ? m_in[ml] : -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kMmaWarps; ++w) m = fmaxf(m, part[(w * kMaxK + k) * kPart + kDh]);
-    const float m_use = m == -INFINITY ? 0.f : m;
-    float l = 0.f, acc = 0.f;
-    if (m_in) {
-      const float a = expf(m_in[ml] - m_use);
-      l = l_in[ml] * a;
-      acc = acc_in[at] * a;
-    }
-#pragma unroll
-    for (int w = 0; w < kMmaWarps; ++w) {
-      const float* p = part + (w * kMaxK + k) * kPart;
-      const float a = expf(p[kDh] - m_use);
-      l += p[kDh + 1] * a;
-      acc += p[d] * a;
-    }
-    if (acc_out) {
-      acc_out[at] = acc;
-      if (d == 0) {
-        m_out[ml] = m;
-        l_out[ml] = l;
-      }
-    } else {
-      out[at] = __float2bfloat16(acc / fmaxf(l, 1e-30f));
-    }
-  }
+  merge_partials<kMmaWarps>(part, rh, K, threadIdx.x, kMmaThreads, out, m_in, l_in, acc_in,
+                            m_out, l_out, acc_out);
 }
 
 template <typename TS, typename TL, bool kTwo>
@@ -851,6 +923,185 @@ cudaError_t launch_mma(const void* q, const Segment& s0, const Segment& s1, void
   kernel<<<R * H, kMmaThreads, smem, st>>>(static_cast<const bf16*>(q), s0, s1,
                                         static_cast<bf16*>(out), m_in, l_in, acc_in, m_out,
                                         l_out, acc_out, H, K, scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16 q, manual-pipeline form: a persistent bulk-copy ring under mbarriers
+// ---------------------------------------------------------------------------
+
+constexpr int kManualWarps = 2;                 // warps a block
+constexpr int kManualThreads = 32 * kManualWarps;
+static_assert(kChunk == 32, "a warp copies one slot per lane");
+
+// One ring stage: kChunk padded bf16 rows, then the chunk's mask rows
+// [kMaxK][kMaskLd] fp32 (no scales: the manual form has no int8 cache).
+struct ManualStage {
+  static constexpr int kMask = kChunk * PaddedRows::kStride;
+  static constexpr int kSk = kMask, kSv = kMask;          // unused
+  static constexpr int kBytes = kMask + kMaxK * kMaskLd * 4;
+};
+static_assert(ManualStage::kBytes % 16 == 0, "bulk copies land on 16-byte boundaries");
+
+// Dynamic shared memory of a block with S stages a warp: the rings
+// [warp][stage], two sets of the warps' partials (items alternate between
+// them, so a warp can store item i + 1's while the other still reads item
+// i's), then one full mbarrier a stage.
+template <int S> struct ManualSmem {
+  static constexpr int kParts = kManualWarps * S * ManualStage::kBytes;
+  static constexpr int kPartFloats = kManualWarps * kMaxK * kPart;
+  static constexpr int kBars = kParts + 2 * kPartFloats * 4;
+  static constexpr int kBytes = kBars + kManualWarps * S * 8;
+};
+
+// Where a warp's walk stands: chunk j of item `it` (slots [lo, hi), nc
+// chunks), carried into the block's next items past nc.
+struct ManualCursor {
+  int it, j, lo, hi, nc;
+  __device__ void load(const Segment& seg, int H) {
+    const int r = it / H;
+    lo = seg_lo(seg, r);
+    hi = seg_hi(seg, r);
+    nc = hi > lo ? (hi - lo + kChunk - 1) / kChunk : 0;
+  }
+  __device__ void carry(const Segment& seg, int H, int items) {
+    while (it < items && j >= nc) {
+      j -= nc;
+      it += gridDim.x;
+      if (it < items) load(seg, H);
+    }
+  }
+};
+
+// The manual-pipeline kernel for bf16 q.  A persistent grid: block b takes
+// the (row, head) items b, b + gridDim.x, ... (item r H + h, so that the
+// blocks in flight hold the heads of one row and its mask rows stay in L2).
+// The items' slots are cut into chunks of kChunk, numbered across all of
+// the block's items; chunk c is warp c % 2's, and goes into stage (c / 2)
+// % S of that warp's ring.  Each warp is its own producer: S - 1 chunks
+// ahead of the one it folds, and across items, it asks the copy engine for
+// each slot of a chunk (lane l: one 256-byte bulk copy into padded row l,
+// counted on the stage's full mbarrier, whose byte count lane 0 sets) and
+// cp.asyncs the slot's K mask values (one commit group a chunk).  Lanes
+// past a row's bound copy nothing; their rows keep an earlier round's
+// bytes, which the fold neither weighs nor multiplies (kGuard).  Before a
+// stage is asked for again the warp has read it (__syncwarp) and fenced
+// its generic reads from the copy engine's writes.  Each warp folds its
+// chunks with the auto kernel's fold_chunk into its own softmax state; at
+// the end of an item both warps store their partials, meet at one barrier
+// and merge, while the next item's copies are already landing.
+template <int S>
+__global__ void __launch_bounds__(kManualThreads)
+flash_decode_manual_mma_kernel(const bf16* __restrict__ q, Segment seg, bf16* __restrict__ out,
+                               int R, int H, int K, float scale) {
+  using M = ManualSmem<S>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int items = R * H;
+  const unsigned char* kv = static_cast<const unsigned char*>(seg.kv);
+  unsigned char* ring = smem + warp * S * ManualStage::kBytes;
+  const unsigned bars = smem_addr(smem + M::kBars) + 8u * warp * S;
+  if (lane == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(bars + 8u * s, 1);   // lane 0's expect_tx
+    mbar_init_fence();
+  }
+  __syncwarp();
+
+  // The copies of the warp's next chunk into its next stage, one cp.async
+  // commit group a call (empty past the block's last chunk).
+  ManualCursor next{(int)blockIdx.x, warp, 0, 0, 0};
+  if (next.it < items) next.load(seg, H);
+  next.carry(seg, H, items);
+  int issued = 0;
+  auto issue = [&]() {
+    if (next.it < items) {
+      const int r = next.it / H, h = next.it - r * H;
+      const int u0 = next.lo + next.j * kChunk, n = min(kChunk, next.hi - u0);
+      unsigned char* st = ring + (issued % S) * ManualStage::kBytes;
+      const unsigned full = bars + 8u * (issued % S);
+      if (lane == 0) mbar_arrive_expect_tx(full, n * Frag<bf16>::kSlot);
+      __syncwarp();
+      if (lane < n) {
+        bulk_copy_g2s(smem_addr(st + lane * PaddedRows::kStride),
+                      kv + slot_index(seg, r, h, H, u0 + lane) * Frag<bf16>::kSlot,
+                      Frag<bf16>::kSlot, full);
+        const float* mask = seg.mask + (size_t)(seg.Rm > 1 ? r : 0) * K * seg.U + u0 + lane;
+        float* ms = reinterpret_cast<float*>(st + ManualStage::kMask) + lane;
+        for (int qk = 0; qk < K; ++qk)
+          cp_async4(ms + qk * kMaskLd, mask + (size_t)qk * seg.U, true);
+      }
+      ++issued;
+      next.j += kManualWarps;
+      next.carry(seg, H, items);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) issue();
+
+  const int g = lane >> 2, t = lane & 3;
+  float* parts = reinterpret_cast<float*>(smem + M::kParts);
+  int c0 = 0, b = 0, k = 0;                   // k: the warp's chunks folded so far
+  for (int it = blockIdx.x; it < items; it += gridDim.x, b ^= 1) {
+    ManualCursor cur{it, 0, 0, 0, 0};
+    cur.load(seg, H);
+    uint32_t qa[8];
+    load_q(q, it, K, g, t, qa);
+    WarpState ws;
+    ws.reset();
+    for (int j = ((warp - c0) % kManualWarps + kManualWarps) % kManualWarps; j < cur.nc;
+         j += kManualWarps, ++k) {
+      __syncwarp();                           // every lane is done with chunk k - 1's stage
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      issue();                                // chunk k + S - 1 into that stage
+      cp_async_wait<S - 1>();                 // this lane's mask values of chunk k
+      __syncwarp();                           // and every lane's
+      mbar_wait(bars + 8u * (k % S), (k / S) & 1);    // the slots of chunk k
+      fold_chunk<FragBf16<PaddedRows>, ManualStage, true>(
+          ring + (k % S) * ManualStage::kBytes, min(kChunk, cur.hi - cur.lo - j * kChunk), K,
+          scale, qa, g, t, ws);
+    }
+    c0 += cur.nc;
+    float* part = parts + b * M::kPartFloats;
+    store_partial(part, warp, ws, K, g, t);
+    __syncthreads();
+    merge_partials<kManualWarps>(part, it, K, threadIdx.x, kManualThreads, out, nullptr, nullptr,
+                                 nullptr, nullptr, nullptr, nullptr);
+  }
+  cp_async_wait<0>();
+}
+
+// Blocks of the manual kernel with S stages that the card holds at once
+// (the occupancy query runs once per S).
+template <int S>
+int manual_resident_blocks() {
+  static int resident = -1;
+  if (resident < 0) {
+    int per_sm = 0, dev = 0, sms = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, flash_decode_manual_mma_kernel<S>, kManualThreads,
+            ManualSmem<S>::kBytes) != cudaSuccess ||
+        cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 0;
+    resident = per_sm * sms;
+  }
+  return resident;
+}
+
+template <int S>
+cudaError_t launch_manual_mma(const void* q, const Segment& seg, void* out, int R, int H, int K,
+                              float scale, cudaStream_t st) {
+  constexpr int smem = ManualSmem<S>::kBytes;
+  const auto kernel = flash_decode_manual_mma_kernel<S>;
+  const cudaError_t set =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (set != cudaSuccess) return set;
+  const int resident = manual_resident_blocks<S>();
+  if (resident <= 0) return cudaErrorInvalidConfiguration;
+  const int blocks = R * H < resident ? R * H : resident;
+  kernel<<<blocks, kManualThreads, smem, st>>>(
+      static_cast<const bf16*>(q), seg, static_cast<bf16*>(out), R, H, K, scale);
   return cudaGetLastError();
 }
 
@@ -893,16 +1144,21 @@ cudaError_t launch_two_phase_bf16(const void* q, const Segment& sh, const Segmen
                 scale, st);
 }
 
+// fp32 q: the CUDA-core kernel; bf16 q: the bulk-copy ring.
 template <typename T, int S>
 cudaError_t launch_manual(const void* q, const Segment& seg, void* out, int R, int H, int K,
                           float scale, cudaStream_t st) {
-  constexpr int smem = S * kTile * Swizzled<T>::kSlot;
-  const cudaError_t set = cudaFuncSetAttribute(
-      flash_decode_manual_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (set != cudaSuccess) return set;
-  flash_decode_manual_kernel<T, S><<<R * H, kThreads, smem, st>>>(
-      static_cast<const T*>(q), seg, static_cast<T*>(out), H, K, scale);
-  return cudaGetLastError();
+  if constexpr (sizeof(T) == 2) {
+    return launch_manual_mma<S>(q, seg, out, R, H, K, scale, st);
+  } else {
+    constexpr int smem = S * kTile * Swizzled<T>::kSlot;
+    const cudaError_t set = cudaFuncSetAttribute(
+        flash_decode_manual_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (set != cudaSuccess) return set;
+    flash_decode_manual_kernel<T, S><<<R * H, kThreads, smem, st>>>(
+        static_cast<const T*>(q), seg, static_cast<T*>(out), H, K, scale);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>

@@ -22,8 +22,7 @@ the bf16 kernels, which compute q·kᵀ and the value product on tensor cores
 chunks of slots into its own running softmax before one merge; their
 bf16 outputs differ from the twin's by up to ~2e-2 at O(1), where the
 twin rounds against the row's max and a warp against its running max.
-fp32 q takes the CUDA-core kernels; the manual-pipeline kernel keeps its
-weights in fp32.
+fp32 q takes the CUDA-core kernels.
 
 A bound is a host int (the decode loops know the step on the host) or a
 device int32 ``[R]`` vector (one bound per row, e.g. each sample's
@@ -38,9 +37,17 @@ slot ``t·u + o`` of row r and head h at ``[r, t, h, o]``, the JAX package's
 ``init_kv_cache(tile_major=True)`` layout, with ``u`` from
 :func:`_pick_u_tile`); both kernels read it in place, and only the twin
 takes its logical ``[R, H, T·u, 2·Dh]`` view.  ``manual`` (default: env
-``CLIPCAP_FLASH_MANUAL=1``) takes the manual-pipeline kernel for such a
-cache with no carry: the same function, its tile walk fed by a ring of
-``CLIPCAP_FLASH_MANUAL_SLOTS`` (2 to 4, default 2) asynchronous copies.
+``CLIPCAP_FLASH_MANUAL=1``) takes the manual-pipeline kernel for a
+bf16/fp32 cache with no carry (the counterpart of the JAX package's
+``_manual_call``): the same function, its walk over the slots fed by
+``CLIPCAP_FLASH_MANUAL_SLOTS`` (2 to 4, default 2) stages of asynchronous
+copies.  Bytes bound it.  For bf16 q it is a persistent kernel: as many
+two-warp blocks as the card holds walk the (row, head) pairs; each warp
+keeps the copy engine's bulk copies of its next 32-slot chunks in flight
+under mbarriers (running on into the next pair while the block merges
+this one) and folds its chunks on tensor cores as the auto kernel does,
+the weights rounded to bf16.  fp32 q takes a CUDA-core kernel fed by a
+ring of 16-byte ``cp.async`` copies.
 """
 from __future__ import annotations
 

@@ -95,14 +95,16 @@ def test_init_kv_cache_tile_major_shapes_match_jax(monkeypatch, layout, max_len)
 # ---------------------------------------------------------------------------
 
 
-def test_twin_on_tile_major_matches_jax_manual_kernel():
+def _twin_vs_jax_manual_kernel(dtype, atol, rtol):
     """At every u_valid boundary of two 96-slot tiles, with a broadcast and
-    a per-row (ancestry-shaped) mask, on both cache layouts."""
+    a per-row (ancestry-shaped) mask, on both cache layouts; q and the cache
+    rounded to ``dtype`` in both packages."""
     rng = np.random.default_rng(11)
     R, H, K, Dh, U, ut = 4, 3, 5, 64, 192, 96
     q = rng.normal(size=(R, H, K, Dh)).astype(np.float32)
     kv = rng.normal(size=(R, H, U, 2 * Dh)).astype(np.float32)
     kv5 = _to_tile_major(kv, ut)
+    jdtype = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype]
     cases = []
     for u_valid in (1, 95, 96, 97, 191, 192):
         vis = np.zeros((1, K, U), np.float32)
@@ -116,11 +118,27 @@ def test_twin_on_tile_major_matches_jax_manual_kernel():
     cases.append((150, vis))
     for u_valid, mask in cases:
         for form, kvx in (("strided", kv), ("tile-major", kv5)):
-            want = jfd.flash_decode(jnp.asarray(q), jnp.asarray(kvx), jnp.asarray(mask),
-                                    u_valid=jnp.int32(u_valid), manual=True, interpret=True)
-            got = flash_decode(_t(q), _t(kvx), _t(mask), u_valid, manual=True)
-            np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=1e-5,
+            want = jfd.flash_decode(jnp.asarray(q).astype(jdtype), jnp.asarray(kvx).astype(jdtype),
+                                    jnp.asarray(mask), u_valid=jnp.int32(u_valid), manual=True,
+                                    interpret=True)
+            got = flash_decode(_t(q).to(dtype), _t(kvx).to(dtype), _t(mask), u_valid,
+                               manual=True)
+            assert got.dtype == dtype
+            np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                                       atol=atol, rtol=rtol,
                                        err_msg=f"{form} u_valid={u_valid} Rm={len(mask)}")
+
+
+def test_twin_on_tile_major_matches_jax_manual_kernel():
+    _twin_vs_jax_manual_kernel(torch.float32, 1e-6, 1e-5)
+
+
+def test_twin_on_tile_major_matches_jax_manual_kernel_bf16():
+    """bf16 q and cache: both round the softmax weights to bf16 before the
+    value product; outputs within the file's bf16 tolerance (2e-2 abs,
+    ``KERNEL_TOL``: the two take the exponentials' sums in other orders and
+    round the output to bf16)."""
+    _twin_vs_jax_manual_kernel(torch.bfloat16, KERNEL_TOL[torch.bfloat16], 0)
 
 
 def test_twin_on_tile_major_sampling_shape():
@@ -277,15 +295,21 @@ def cuda():
 
 
 # fp32: another summation order (1e-4 abs); bf16: the twin rounds the
-# softmax weights to bf16 against the row's max, the auto kernel against
-# each warp's running max, and the manual kernel keeps them fp32 (2e-2 abs).
+# softmax weights to bf16 against the row's max, the bf16 kernels (auto and
+# manual) against each warp's running max (2e-2 abs).
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _tile_major_t(kv, u):
+    """A strided cache tensor [R, H, U, D2] → tile-major [R, U // u, H, u, D2]."""
+    R, H, U, D2 = kv.shape
+    return kv.reshape(R, H, U // u, u, D2).permute(0, 2, 1, 3, 4).contiguous()
 
 
 def _cuda_case(g, R, H, K, U, ut, dtype, dev):
     q = torch.randn(R, H, K, 64, generator=g, device=dev).to(dtype)
     kv = torch.randn(R, H, U, 128, generator=g, device=dev).to(dtype)
-    kv5 = kv.reshape(R, H, U // ut, ut, 128).permute(0, 2, 1, 3, 4).contiguous()
+    kv5 = _tile_major_t(kv, ut)
     mask = torch.where(torch.rand(R, K, U, generator=g, device=dev) < 0.5, 0.0, NEG_INF)
     mask[..., 0] = 0.0
     return q, kv, kv5, mask
@@ -312,6 +336,102 @@ def test_manual_kernel_matches_twin(cuda, monkeypatch, dtype, slots, K, U, ut):
             n += 1
     assert (flash_decode.launches, flash_decode.manual_launches) == (before[0] + n,
                                                                      before[1] + n)
+
+
+# Bounds that end inside, at and just past the bf16 kernels' 16-slot mma
+# fragments and 32-slot chunks.
+EDGES = (1, 15, 16, 17, 31, 33, 64, 65, 129, 215)
+
+
+def _manual_matches_twin(monkeypatch, q, kvs, mask, bounds, slots, want_kv=None, want_mask=None):
+    """The manual kernel at ring depth ``slots`` against the twin, for each
+    ``(lo, hi)`` of ``bounds`` on each cache of ``kvs`` (the twin on
+    ``want_kv`` / ``want_mask`` where given); the manual count rises by one
+    a call."""
+    monkeypatch.setenv("CLIPCAP_FLASH_MANUAL_SLOTS", slots)
+    before = flash_decode.manual_launches
+    n = 0
+    for lo, hi in bounds:
+        for i, kvx in enumerate(kvs):
+            got = flash_decode(q, kvx, mask, hi, u_lo=lo, manual=True)
+            ref_kv = kvx if want_kv is None else want_kv[i]
+            want = flash_decode_ref(q, ref_kv, mask if want_mask is None else want_mask, hi,
+                                    u_lo=lo)
+            assert torch.isfinite(got.float()).all(), (slots, lo, hi, i)
+            torch.testing.assert_close(got.float(), want.float(), atol=KERNEL_TOL[q.dtype],
+                                       rtol=0, msg=lambda m: f"S={slots} [{lo}, {hi}) {i}: {m}")
+            n += 1
+    assert flash_decode.manual_launches == before + n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", ["2", "3", "4"])
+@pytest.mark.parametrize("K", [1, 5, 8])
+def test_manual_bf16_kernel_chunk_edges(cuda, monkeypatch, slots, K):
+    """GPT-2 XL's 25 heads; bounds that cut the 32-slot chunks and 16-slot
+    fragments, from 0 and from a ``lo`` that is not a multiple of 4, host
+    and per-row, on both layouts (64-slot tiles)."""
+    g = torch.Generator(device=cuda).manual_seed(40 + K)
+    q, kv, kv5, mask = _cuda_case(g, 8, 25, K, 256, 64, torch.bfloat16, cuda)
+    bounds = [(0, b) for b in EDGES] + [(5, 215), (17, 50), (33, 34), (101, 256)]
+    lo = torch.tensor([0, 1, 15, 17, 31, 33, 101, 213], dtype=torch.int32, device=cuda)
+    hi = torch.tensor([1, 16, 17, 33, 64, 65, 129, 215], dtype=torch.int32, device=cuda)
+    _manual_matches_twin(monkeypatch, q, (kv, kv5), mask, bounds + [(lo, hi)], slots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ut", [64, 80, 96])
+def test_manual_bf16_kernel_tile_major_straddles(cuda, monkeypatch, ut):
+    """Chunks that straddle the layout's tiles of ``ut`` slots (three tiles),
+    at every ring depth."""
+    g = torch.Generator(device=cuda).manual_seed(ut)
+    U = 3 * ut
+    q, kv, kv5, mask = _cuda_case(g, 6, 25, 5, U, ut, torch.bfloat16, cuda)
+    bounds = [(0, ut + 1), (ut - 5, ut + 27), (ut - 1, 2 * ut + 1), (3, U), (0, U)]
+    lo = torch.tensor([0, ut - 1, ut - 17, 1, 2 * ut - 3, 0], dtype=torch.int32, device=cuda)
+    hi = torch.tensor([ut, ut + 1, 2 * ut + 15, 2 * ut, U, U], dtype=torch.int32, device=cuda)
+    for slots in ("2", "3", "4"):
+        _manual_matches_twin(monkeypatch, q, (kv5,), mask, bounds + [(lo, hi)], slots,
+                             want_kv=(kv,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", ["2", "3", "4"])
+def test_manual_bf16_kernel_persistent_grid(cuda, monkeypatch, slots):
+    """2,400 (row, head) items, several per block of the persistent grid
+    at every ring depth, with uneven per-row bounds: rows of one slot, an
+    empty row, rows of one chunk and rows of many."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    R, U = 96, 384
+    q, kv, kv5, mask = _cuda_case(g, R, 25, 5, U, 64, torch.bfloat16, cuda)
+    lo = torch.randint(0, 200, (R,), generator=g, device=cuda)
+    length = torch.randint(0, U, (R,), generator=g, device=cuda)
+    length[:8] = torch.tensor([1, 1, 0, 1, 32, 31, 33, 2], device=cuda)
+    hi = torch.minimum(lo + length, torch.tensor(U, device=cuda))
+    lo, hi = lo.to(torch.int32), hi.to(torch.int32)
+    _manual_matches_twin(monkeypatch, q, (kv, kv5), mask, [(lo, hi)], slots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_manual_kernel_reads_only_its_bounds(cuda, monkeypatch, dtype):
+    """Slots and mask columns outside each row's ``[lo, hi)`` hold NaN: the
+    output stays finite and equals the twin's on the clean cache and mask."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    R, U = 8, 256
+    q, kv, _, mask = _cuda_case(g, R, 25, 5, U, 64, dtype, cuda)
+    lo = torch.tensor([0, 1, 15, 17, 31, 33, 101, 5], dtype=torch.int32, device=cuda)
+    hi = torch.tensor([1, 16, 17, 50, 64, 97, 215, 256], dtype=torch.int32, device=cuda)
+    slot = torch.arange(U, device=cuda)
+    outside = (slot < lo[:, None].long()) | (slot >= hi[:, None].long())        # [R, U]
+    for bounds in ((lo, hi), (17, 215)):
+        out = outside if isinstance(bounds[0], torch.Tensor) else (slot < 17) | (slot >= 215)
+        out = out.expand(R, U)
+        dirty = kv.masked_fill(out[:, None, :, None], float("nan"))
+        dirty_mask = mask.masked_fill(out[:, None, :], float("nan"))
+        for slots in ("2", "3", "4"):
+            _manual_matches_twin(monkeypatch, q, (dirty, _tile_major_t(dirty, 64)), dirty_mask,
+                                 [bounds], slots, want_kv=(kv, kv), want_mask=mask)
 
 
 @pytest.mark.cuda
