@@ -13,9 +13,14 @@ Phases (any failure exits non-zero before the last line):
    heads: the preprocess path's shape); ``fused_sdpa`` (the head-major
    entry of the same attention core) at [B, H, N] = (8, 12, 50), (5, 8, 77,
    causal), (32, 16, 257) and (4, 16, 512); the patch-embed kernel at ViT-L/14
-   b256 and ViT-B/32 b512 shapes, odd batches, test-tiny's width 64 and a
-   batch that does not start 16-byte aligned, with and without bias
-   (within one bf16 ulp of the largest output, 2^-7·max|ref|); the
+   b256 and ViT-B/32 b512 shapes, odd batches (M ragged against its
+   128-patch tile), widths 64 and 320 (ragged against its 256-column
+   tile), a batch that takes two rounds of its persistent grid, ViT-B/16,
+   both pixel paths (copy engine and bytes) at P = 14, 16 and 32 (batches
+   that do not start 16-byte aligned) and at an odd P = 7, ViT-L/14@336px
+   (a one-stage pixel ring; b256 and a ragged b3, on both paths), and 255 in
+   every pixel, with and without bias (within one bf16 ulp of the largest
+   output, 2^-7·max|ref|); the
    manual-pipeline decode kernel (ring depth S = 2, 3 and 4) on the strided
    and the tile-major cache, and the auto kernel on the tile-major cache,
    at beam R = 128 (H = 12, K = 5, U = 384, u = 64), sampling R = 160
@@ -97,8 +102,9 @@ Phases (any failure exits non-zero before the last line):
    (read/decode + encode + write, the per-image cost) and end to end with
    the encoder build, the runner's split, ViT-L/14 b256 embeds/s with the kernel and
    with the twin, a ``torch.profiler`` breakdown of one batch, and the
-   patch kernel against its twin, ``F.conv2d`` and the eager route at both
-   shapes;
+   patch kernel against its twin, ``F.conv2d`` and the eager route at
+   ViT-L/14, ViT-B/32 and ViT-L/14@336px shapes on both clocks, and with
+   the L2 flushed before each call;
 9. the eval stage through ``clipcap_tpu_torch.eval.base.run_eval(argv)``
    on the phase-3 checkpoint: 64 seeded JPEGs, a seeded reference CSV of
    five captions each, batches of 32 x 5 candidates, bf16, with
@@ -217,15 +223,16 @@ def device_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
 
-def device_ms(fn, iters: int = 20):
+def device_ms(fn, iters: int = 20, only: str | None = None):
     """Mean device time of one ``fn()`` call from the CUPTI durations that
     ``torch.profiler`` records over ``iters`` calls after warm-up: each
     kernel's mean over the instances the trace holds, times its launches
     per call (its count over ``iters``, at least 1), summed.  A trace can
     drop events, and a sum over ``iters`` would then read low (it read
     0.0188 ms for a 0.037 ms kernel).  Unlike ``cuda_ms`` it leaves out the
-    host's gaps between launches.  A trace that comes back without device
-    events is taken again, up to three times; None if none has any."""
+    host's gaps between launches.  ``only``: count only the kernels whose
+    name holds it.  A trace that comes back without device events is taken
+    again, up to three times; None if none has any."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -239,7 +246,8 @@ def device_ms(fn, iters: int = 20):
             torch.cuda.synchronize()
         call_us = sum(device_us(e) / e.count * max(1, round(e.count / iters))
                       for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA and e.count)
+                      if e.device_type == torch.autograd.DeviceType.CUDA and e.count
+                      and (only is None or only in e.key))
         del prof
         if call_us > 0:
             return call_us / 1e3
@@ -486,7 +494,8 @@ FUSED_SHAPES = ((8, 12, 50, False), (5, 8, 77, True), (32, 16, 257, False), (4, 
 
 
 # Patch-embed shapes: (batch, image side, patch, width).
-PATCH_SHAPES = {"ViT-L/14 b256": (256, 224, 14, 1024), "ViT-B/32 b512": (512, 224, 32, 768)}
+PATCH_SHAPES = {"ViT-L/14 b256": (256, 224, 14, 1024), "ViT-B/32 b512": (512, 224, 32, 768),
+                "ViT-L/14@336px b256": (256, 336, 14, 1024)}
 
 
 def patch_inputs(g, B, S, P, D, dev):
@@ -499,24 +508,45 @@ def patch_inputs(g, B, S, P, D, dev):
     return imgs, w, bias
 
 
-def check_patch_embed(dev, g) -> float:
-    """Phase 2, the patch-embed kernel against its twin: the main path's
-    shapes, odd batches (M = 3·49 or 3·256 patches, not a multiple of the
-    kernel's 128-row tile), test-tiny's width 64, and a batch that does
-    not start 16-byte aligned (the byte path at P = 32), with and without
-    bias.  Tolerance one bf16 ulp of the largest output: both sum the same
-    bf16 products in fp32 in another order and round once."""
-    from clipcap_tpu_torch.ops.patch_embed import patch_embed, patch_embed_ref
+# Phase 2's patch-embed cases beyond the main shapes: (label, batch, image
+# side, patch, width).  The kernel's tiles are 128 patches x 256 columns.
+PATCH_CASES = (
+    ("odd batch", 3, 224, 32, 768), ("odd batch", 3, 224, 14, 1024),   # M = 147, 768
+    ("test-tiny", 3, 32, 16, 64),                                       # D = 64 of 256
+    ("width 320", 2, 224, 14, 320),                                     # D ragged
+    ("multi-round", 40, 224, 14, 320),          # 160 tiles: two rounds of the grid
+    ("ViT-B/16", 5, 224, 16, 768),
+    ("28 px", 2, 28, 14, 64),                   # patch rows of 1,176 bytes: bytes path
+    ("unaligned", 3, 224, 14, 320), ("unaligned", 3, 224, 16, 768),
+    ("unaligned", 3, 224, 32, 768),             # batches off 16 bytes: bytes path
+    ("all 255", 4, 224, 14, 1024), ("all 255", 4, 224, 32, 768),        # the widening's top
+    ("odd patch", 2, 112, 7, 64), ("odd patch", 2, 28, 7, 64),          # both pixel paths
+    # 336 px: a tile's 6 patch rows (84,672 bytes) fit once, so the pixel
+    # ring has one stage; M = 1,728 ends inside a tile.
+    ("336 px", 3, 336, 14, 1024), ("unaligned", 3, 336, 14, 1024),
+)
 
-    cases = [(label, *shape) for label, shape in PATCH_SHAPES.items()]
-    cases += [("odd batch", 3, 224, 32, 768), ("odd batch", 3, 224, 14, 1024),
-              ("test-tiny", 3, 32, 16, 64), ("unaligned", 3, 224, 32, 768)]
+
+def check_patch_embed(dev, g) -> float:
+    """Phase 2, the patch-embed kernel against its twin: the timed shapes
+    (``PATCH_SHAPES``) and ``PATCH_CASES`` (ragged M and D against the 128 x
+    256 tile, two rounds of the persistent grid, both pixel paths at P =
+    14, 16, 32 and 7 and at 336 px, 255 in every pixel), with and without
+    bias.  Tolerance one bf16
+    ulp of the largest output: both sum the same bf16 products in fp32 in
+    another order and round once."""
+    from clipcap_tpu_torch.ops.patch_embed import patch_embed, patch_embed_ref, pixel_path
+
+    cases = [(label, *shape) for label, shape in PATCH_SHAPES.items()] + list(PATCH_CASES)
     worst = 0.0
     for label, B, S, P, D in cases:
         imgs, w, bias = patch_inputs(g, B, S, P, D, dev)
+        if label == "all 255":
+            imgs.fill_(255)
         if label == "unaligned":
             flat = torch.empty(imgs.numel() + 1, dtype=torch.uint8, device=dev)
             imgs = flat[1:].view_as(imgs).copy_(imgs)
+        path = pixel_path(imgs.shape, P, imgs.data_ptr())
         # What a kernel that dropped the bias would miss by.
         miss = (patch_embed_ref(imgs, w, bias, P).float()
                 - patch_embed_ref(imgs, w, None, P).float()).abs().max().item()
@@ -524,8 +554,9 @@ def check_patch_embed(dev, g) -> float:
             want = patch_embed_ref(imgs, w, b, P).float()
             d = (patch_embed(imgs, w, b, P).float() - want).abs().max().item()
             tol = 2 ** -7 * want.abs().max().item()
-            print(f"kernel patch_embed {label} B={B} {S}x{S} P={P} D={D} bias={b is not None}: "
-                  f"max|d| {d:.3g} (tol {tol:.3g}; a dropped bias: {miss:.3g})")
+            print(f"kernel patch_embed {label} B={B} {S}x{S} P={P} D={D} pixel path {path} "
+                  f"bias={b is not None}: max|d| {d:.3g} (tol {tol:.3g}; a dropped bias: "
+                  f"{miss:.3g})")
             if not d <= tol:
                 raise AssertionError(f"patch_embed {label}: max|d| {d} over {tol}")
             worst = max(worst, d)
@@ -797,8 +828,11 @@ def time_patch_embed(dev, tag: str):
     """Phase 8e: the patch-embed kernel against its twin, ``F.conv2d`` (the
     library call: a bf16 NCHW image, a layout the port never holds, and
     the folded weight as a stride-P convolution) and the eager cast +
-    ``patchify`` + ``linear`` route, at both shapes; the row of the kernels
-    JSON is ViT-L/14 b256, the main path's shape."""
+    ``patchify`` + ``linear`` route, at each shape and on both clocks; the
+    kernel with the L2 flushed before each call (cold: back to back, the
+    50 MB L2 holds ViT-L/14's 38.5 MB batch).  The row of the kernels JSON
+    is ViT-L/14 b256, the main path's shape, with ViT-B/32 b512 and
+    ViT-L/14@336px b256 beside it."""
     import torch.nn.functional as F
 
     from clipcap_tpu_torch.ops.layers import linear
@@ -806,22 +840,35 @@ def time_patch_embed(dev, tag: str):
 
     g = torch.Generator(device=dev).manual_seed(6)
     bf = torch.bfloat16
-    out = None
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = {}
     for label, (B, S, P, D) in PATCH_SHAPES.items():
         imgs, w, bias = patch_inputs(g, B, S, P, D, dev)
         nchw = imgs.permute(0, 3, 1, 2).to(bf).contiguous()
         conv_w = w.t().reshape(D, 3, P, P).contiguous()
         M, K = B * (S // P) ** 2, 3 * P * P
-        t = {"ms": cuda_ms(lambda: patch_embed(imgs, w, bias, P)),
-             "plain_ms": cuda_ms(lambda: patch_embed_ref(imgs, w, bias, P)),
-             "library_ms": cuda_ms(lambda: F.conv2d(nchw, conv_w, bias, stride=P)),
+
+        def kernel():
+            return patch_embed(imgs, w, bias, P)
+
+        # The kernel is one launch: its traces count only it, so a kernel
+        # still running from earlier work adds nothing.
+        t = {"ms": cuda_ms(kernel), "device_ms": device_ms(kernel, only="patch_embed"),
+             **timed(lambda: patch_embed_ref(imgs, w, bias, P), "plain_"),
+             **timed(lambda: F.conv2d(nchw, conv_w, bias, stride=P), "library_"),
+             **timed(lambda: linear(patchify(imgs.to(bf), P), w, bias), "eager_"),
+             "cold_device_ms": device_ms(lambda: (flush.zero_(), kernel()), only="patch_embed"),
              **bound(imgs.numel() + 2 * (w.numel() + D + M * D), 2 * M * K * D, bf)}
-        eager = cuda_ms(lambda: linear(patchify(imgs.to(bf), P), w, bias))
-        print(f"time [{tag}] patch_embed {label} (M={M}, K={K}, D={D}): {t}; eager cast + "
-              f"patchify + linear {eager:.4f} ms; {2 * M * K * D / t['ms'] / 1e9:.1f} TFLOP/s; "
-              f"library_ms is F.conv2d on a bf16 NCHW copy, not the uint8 NHWC input")
-        out = out or t
-    return out
+        # A trace can come back without device events (device_ms None):
+        # then the rate is on the CUDA-event clock, and says so.
+        clock = "device_ms" if t["device_ms"] is not None else "ms"
+        t.update(tflops=2 * M * K * D / t[clock] / 1e9, tflops_clock=clock)
+        print(f"time [{tag}] patch_embed {label} (M={M}, K={K}, D={D}): {t}; "
+              f"{t['tflops']:.1f} TFLOP/s ({clock}); library is F.conv2d on a bf16 NCHW copy, "
+              f"not the uint8 NHWC input")
+        rows[label] = t
+    return {**rows["ViT-L/14 b256"], "vit_b32_b512": rows["ViT-B/32 b512"],
+            "vit_l14_336_b256": rows["ViT-L/14@336px b256"]}
 
 
 def run_slice(dev, workdir: Path):

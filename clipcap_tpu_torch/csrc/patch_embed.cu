@@ -19,280 +19,408 @@
 // A plain implementation adds a bf16 copy of the pixels and a permuted
 // copy of that before the product (both HBM round trips).
 //
-// Design: one block computes a 128-patch x 128-column output tile (two
-// blocks per SM) with bf16 mma.sync (m16n8k16, fp32 accumulation;
-// fragments by ldmatrix from shared memory; each of 8 warps a 32 x 64
-// piece) over the 3P^2 depth in chunks, zero-padded past the depth, two
-// chunks staged in shared memory.  The im2col is index arithmetic.  The
-// block walks the depth in (ph, pw, c) order, so that one patch row ph of
-// one patch is 3P contiguous bytes of the image; the weight rows are read
-// in that order by index from the shipping (c, ph, pw) layout, so no
-// permuted copy exists.  Both indices of every depth position
-// (its byte offset in the patch, its weight row) are computed once per
-// block into shared-memory tables, so the chunk loop does no division.
-// Weight chunks go to shared memory by cp.async.  Pixels are widened
-// exactly to bf16 (0..255 through float), never scaled; the epilogue adds
-// the fp32 bias to the accumulators and rounds once.  Ragged M and D are
-// masked (D must be a multiple of 8).  The pixel gather takes one of two
-// paths, chosen per launch:
+// Design: a persistent grid (one block an SM) walks 128-patch x 256-column
+// output tiles, the column tiles of one row tile next to each other, so
+// neighbouring blocks read the same pixels from L2.  A block is three
+// warpgroups: two consumers (64 patches each) and a producer, which gives
+// its registers to the consumers (setmaxnreg 40 / 232).
 //
-//  - 16-byte runs, when P % 16 == 0 (B/16, B/32) and the batch is 16-byte
-//    aligned: a patch row of 3P bytes then starts 16-byte aligned (gx*3P,
-//    the image row 3W and the image 3HW are multiples of 3P) and a run
-//    never crosses a patch row.  Raw pixel runs and weight rows of chunk
-//    i+1 go by cp.async into shared memory while the tensor cores work on
-//    chunk i; each thread then widens the runs it copied itself into the
-//    bf16 tile of chunk i+1, so one barrier per chunk suffices.  Chunks
-//    are 64 deep (48 at B/32).
-//  - single bytes otherwise: a patch row is 42 bytes at P = 14 and starts
-//    at byte gx*42, so no load wider than a byte is aligned, and cp.async
-//    cannot copy it.  The bytes of chunk i+1 go to registers while the
-//    tensor cores work on chunk i (two buffers, one barrier per chunk); a
-//    warp's 32 depth indices of one patch read one or two byte runs.
-//    Chunks are 32 deep (19 at L/14).
+//  - Depth order: the product walks the depth in stages of 32 rows, one
+//    row block j (pixels 32j.. of the patch's (ph, pw) grid) of one channel
+//    c, the three channels of a block in turn.  Pixels r, r + 1 of a block
+//    are then one 6-byte run of the image (P even), which each consumer
+//    thread reads once a block and widens three times, one channel a stage.
+//  - Weight: the producer's first thread keeps a ring of 4 stages full by
+//    TMA, under mbarriers: a 3-D tensor map views the shipping [3P^2, D]
+//    weight as (n, ph * P + pw, c), so stage (j, c) is four 64-column boxes
+//    of 32 rows (128-byte swizzle, 16 KiB) with no permuted copy; rows past
+//    P^2 and columns past D arrive as zeros.
+//  - Pixels: staged raw in shared memory, each patch row's bytes of a stage
+//    one contiguous segment of the batch, copied whole.  "span" (any P):
+//    a stage is the tile's whole patch rows (75,264 bytes at L/14),
+//    double-buffered.  "runs" (P = 16, 32): a stage is one row block's
+//    32 / P image rows of the tile's patch rows; a ring of 4.  A stage is
+//    filled by the copy engine (1-D bulk copies, one a patch row; the batch
+//    16-byte aligned and, for span, each patch row, for runs, each image
+//    row a multiple of 16 bytes) or, where it cannot address the batch, by
+//    three producer warps' 16-byte loads (byte loads in a block the batch's
+//    ends cut, so nothing outside the batch is read): the "bytes" path,
+//    which feeds the same core.  ops/patch_embed.py picks the path and
+//    passes it in; the entry refuses a copy-engine path for a batch the
+//    copy engine cannot address.
+//  - Product: each consumer builds its A fragments of a stage from the runs
+//    it holds (a byte permute picks channel c; exact uint8 -> bf16 by byte
+//    permutes) straight into registers and issues two wgmma.m64n256k16 a
+//    stage (A in registers, B MN-major from the stage, fp32 accumulators:
+//    128 registers a thread), one stage ahead: the fragments of stage i are
+//    built while stage i - 1's product runs.  The stage count is made even
+//    (the extra stage's weights are TMA zeros), so one loop body names both
+//    fragment buffers: with an odd tail ptxas serialises every wgmma
+//    (C7513).  The epilogue adds the fp32 bias (staged in shared memory),
+//    rounds once, swaps values within each quad of lanes and writes 16-byte
+//    stores; ragged M and D are masked (D a multiple of 8).
 //
-// The pixel batch (38.5 MB at L/14 b256) stays in the 50 MB L2 across the
-// column blocks, which run next to each other.  Not WMMA: its fragment
-// loads compile to generic loads and movmatrix, not ldmatrix, and a WMMA
-// form ran 1.5-2x slower on an H100 at chip_smoke.py's shapes.  TMA and
-// wgmma are later work.
+// Budget: the span layout at L/14 takes 4 x 16 KiB of weight stages, 2 x
+// 75,264 bytes of pixels, the 7-block offset table, the bias, the barriers
+// and 1 KiB of alignment: 220,160 bytes of the 232,448 a block may use;
+// runs at B/32 takes 122,112.  A geometry whose pixel stages do not fit
+// twice runs with one: ViT-L/14@336px (6 patch rows of 84,672 bytes a
+// tile; 154,304 bytes), where the next tile's copy waits for the last
+// row block's reads.  At b256 that shape takes 2.15 times L/14 b256's time
+// for 2.25 times its patches; a 3-stage weight ring that made room for two
+// pixel stages ran 11% slower.  One that does not fit once is refused
+// (cudaErrorInvalidConfiguration).  -Xptxas -v (CUDA 12.8): 168 registers
+// at launch in each of the four instantiations (setmaxnreg then moves
+// them), no spills on the bytes paths, 4 bytes on the copy-engine paths.
+#include <cuda.h>   // CUtensorMap; its encoder is looked up at run time (no -lcuda)
+
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace clipcap {
 namespace {
 
-constexpr int kBM = 128, kBN = 128;      // patches x columns per block
-constexpr int kThreads = 256;             // 8 warps: 4 along M x 2 along N
-constexpr int kWarps = kThreads / 32;
-constexpr int kWarpM = 32, kWarpN = 64;   // one warp's piece
-constexpr int kStages = 2;                // chunks staged in shared memory
-constexpr int kLdB = kBN + 8;             // padding: ldmatrix rows fall in distinct banks
-constexpr uint16_t kNoRow = 0xFFFF;       // a weight-row entry past the depth
+constexpr int kBM = 128, kBN = 256, kBK = 32;    // patches x columns per tile; depth per stage
+constexpr int kConsumers = 2;                     // warpgroups of 64 patches
+constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
+constexpr int kWStages = 4;                       // weight ring
+constexpr int kSlab = kBK * 128;                  // one 64-column box: 32 rows x 128 bytes
+constexpr int kWStageBytes = 4 * kSlab;           // 16 KiB
+constexpr int kPStages = 4;                       // pixel ring of the runs layout
+constexpr int kByteFillers = 96;                  // producer threads of the bytes path
+constexpr size_t kSmemMax = 232448;               // 227 KiB a block
+// The pixel path (ops/patch_embed.py ``pixel_path``): bit flags.
+constexpr int kPathBytes = 1, kPathRuns = 2;
 
-// The geometry of one pixel path: kVec bytes per pixel load (1 or 16).
-template <int kVec> struct Tile {
-  static constexpr int BK = kVec == 16 ? 64 : 32;                // depth of a chunk
-  static constexpr int LdA = BK + 8;
-  static constexpr int PixLoads = kVec == 16 ? kBM * BK / 16 / kThreads  // 16-byte runs
-                                             : kBM / kWarps;             // bytes
-  static constexpr int WVecs = BK * kBN / 8 / kThreads;          // 16-byte weight pieces
-  static constexpr size_t ABytes = sizeof(__nv_bfloat16) * 2 * kBM * LdA;
-  static constexpr size_t BBytes = sizeof(__nv_bfloat16) * kStages * BK * kLdB;
-  static constexpr size_t RawBytes = kVec == 16 ? kStages * kBM * BK : 0;
-  // As[2][kBM][LdA], Bs[kStages][BK][kLdB], raw[kStages][kBM][BK] (16-byte
-  // path), row_base[kBM], koff[kpad] (int), wrow[kpad] (uint16).
-  static size_t smem_bytes(int K) {
-    const int kpad = (K + BK - 1) / BK * BK;
-    return ABytes + BBytes + RawBytes + sizeof(int) * (kBM + kpad) + sizeof(uint16_t) * kpad;
-  }
+struct Params {
+  const uint8_t* img;
+  size_t bytes;      // the batch's bytes: the bytes path reads none outside them
+  const __nv_bfloat16* bias;
+  __nv_bfloat16* out;
+  int M, D, W, P, gw;
+  int n_tiles;       // column tiles
+  int units;         // row tiles x column tiles
+  int blocks;        // 32-row blocks of the (ph, pw) grid: ceil(P^2 / 32)
+  int chunks;        // weight stages per tile: 3 blocks (one a channel), made even
+  int nph;           // image rows of every patch a pixel stage holds
+  int groups;        // pixel stages per tile: P / nph
+  int pstages;       // pixel stages in the ring
+  int pstage_bytes;  // bytes of one (a multiple of 16)
 };
 
-// uint8 -> float, exact for 0..255: byte i of x under the exponent of 2^23.
-__device__ __forceinline__ float byte_to_float(uint32_t x, int i) {
-  return __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7440u | i)) - 8388608.f;
-}
-// Bytes i and i+1 of x as bf16x2.  A float of 0..255 has at most 8
-// significant bits, so its upper half is its exact bf16.
-__device__ __forceinline__ uint32_t bytes_to_bf16x2(uint32_t x, int i) {
-  return __byte_perm(__float_as_uint(byte_to_float(x, i)),
-                     __float_as_uint(byte_to_float(x, i + 1)), 0x7632u);
+// Bytes 0 and 1 of x (0..255) as bf16x2, byte 0 in the low half: exact
+// through the float 2^23 + b, whose upper half is the bf16 of b.
+__device__ __forceinline__ uint32_t bf16x2_of_bytes(uint32_t x) {
+  const float lo = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7440u)) - 8388608.f;
+  const float hi = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7441u)) - 8388608.f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632u);
 }
 
-template <int kVec>
-__global__ void __launch_bounds__(kThreads, 2)
-patch_embed_kernel(const uint8_t* __restrict__ img, const __nv_bfloat16* __restrict__ w,
-                   const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-                   int M, int D, int H, int W, int P, int gw, int N) {
-  using G = Tile<kVec>;
-  constexpr int BK = G::BK, S = kStages, LdA = G::LdA;
-  extern __shared__ __align__(128) unsigned char smem[];
-  auto As = reinterpret_cast<__nv_bfloat16(*)[kBM][LdA]>(smem);
-  auto Bs = reinterpret_cast<__nv_bfloat16(*)[BK][kLdB]>(smem + G::ABytes);
-  auto raw = reinterpret_cast<uint8_t(*)[kBM][BK]>(smem + G::ABytes + G::BBytes);
-  int* row_base = reinterpret_cast<int*>(smem + G::ABytes + G::BBytes + G::RawBytes);
-  const int P3 = 3 * P, K = P3 * P, chunks = (K + BK - 1) / BK;
-  int* koff = row_base + kBM;                                  // -1 past the depth
-  uint16_t* wrow = reinterpret_cast<uint16_t*>(koff + chunks * BK);
+// Lane t of each quad holds v[j] for columns 8j + 2t..2t+1 of a 32-column
+// block; afterwards it holds columns 8t..8t+7 (v[j] from lane j).
+__device__ __forceinline__ void transpose_quad(uint32_t (&v)[4], int t) {
+  const bool hi2 = t & 2, hi1 = t & 1;
+  uint32_t s0 = __shfl_xor_sync(0xffffffffu, hi2 ? v[0] : v[2], 2);
+  uint32_t s1 = __shfl_xor_sync(0xffffffffu, hi2 ? v[1] : v[3], 2);
+  if (hi2) { v[0] = s0; v[1] = s1; } else { v[2] = s0; v[3] = s1; }
+  s0 = __shfl_xor_sync(0xffffffffu, hi1 ? v[0] : v[1], 1);
+  s1 = __shfl_xor_sync(0xffffffffu, hi1 ? v[2] : v[3], 1);
+  if (hi1) { v[0] = s0; v[2] = s1; } else { v[1] = s0; v[3] = s1; }
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
+template <bool kRuns, bool kBytes>
+__global__ void __launch_bounds__(kThreads, 1)
+patch_embed_wgmma_kernel(const __grid_constant__ CUtensorMap wmap, const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const wst = smem_raw + (1024 - smem_addr(smem_raw) % 1024) % 1024;
+  unsigned char* const pst = wst + kWStages * kWStageBytes;
+  // Byte offsets in a pixel stage (channel 0) of the pixels r, r + 1, r + 8,
+  // r + 9 of the (ph, pw) grid that lane t of a quad reads in k16 step s of
+  // row block j, r = 32j + 16s + 2t: tab[(4j + t) * 2 + s] (runs: of the
+  // stage's own rows, the same for every block).
+  int4* const tab = reinterpret_cast<int4*>(pst + p.pstages * p.pstage_bytes);
+  const int tab_blocks = kRuns ? 1 : p.blocks;
+  // The bias, zero past D and without one, for every column tile.
+  __nv_bfloat162* const bias2 = reinterpret_cast<__nv_bfloat162*>(tab + 8 * tab_blocks);
+  const unsigned w_full = smem_addr(bias2 + p.n_tiles * kBN / 2), w_empty = w_full + 8 * kWStages;
+  const unsigned p_full = w_empty + 8 * kWStages, p_empty = p_full + 8 * p.pstages;
+  const int P = p.P, P3 = 3 * P, PP = P * P, row3 = 3 * p.W, seg = p.nph * row3;
 
-  // Byte offset of each row's patch origin (pixel (gy*P, gx*P), channel 0);
-  // -1 past the last patch.  The wrapper keeps the batch under 2^31 bytes.
-  for (int r = tid; r < kBM; r += kThreads) {
-    const int m = m0 + r;
-    int base = -1;
-    if (m < M) {
-      const int b = m / N, n = m - b * N, gy = n / gw, gx = n - gy * gw;
-      base = ((b * H + gy * P) * W + gx * P) * 3;
+  for (int e = threadIdx.x; e < 8 * tab_blocks; e += kThreads) {
+    const int j = e >> 3, t = e >> 1 & 3, s = e & 1;
+    int v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 32 * j + 16 * s + 2 * t + (i & 1) + 8 * (i >> 1);
+      v[i] = r < PP ? r / P * row3 + r % P * 3 : 0;      // past P^2: a TMA zero weight
     }
-    row_base[r] = base;
+    tab[e] = make_int4(v[0], v[1], v[2], v[3]);
   }
-  // Depth k in (ph, pw, c) order is byte ph*3W + (k - ph*3P) of the patch
-  // and row c*P^2 + ph*P + pw of w.
-  for (int k = tid; k < chunks * BK; k += kThreads) {
-    const int ph = k / P3, rem = k - ph * P3, pw = rem / 3, c = rem - pw * 3;
-    koff[k] = k < K ? ph * 3 * W + rem : -1;
-    wrow[k] = k < K ? static_cast<uint16_t>(c * P * P + ph * P + pw) : kNoRow;
+  for (int e = threadIdx.x; e < p.n_tiles * kBN / 2; e += kThreads)
+    bias2[e] = p.bias != nullptr && 2 * e < p.D
+                   ? reinterpret_cast<const __nv_bfloat162*>(p.bias)[e]
+                   : __floats2bfloat162_rn(0.f, 0.f);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(w_full + 8 * s, 1);
+      mbar_init(w_empty + 8 * s, kConsumers);            // one arrival a consumer warpgroup
+    }
+    for (int s = 0; s < p.pstages; ++s) {
+      mbar_init(p_full + 8 * s, kBytes ? kByteFillers : 1);
+      mbar_init(p_empty + 8 * s, 4 * kConsumers);        // one arrival a consumer warp
+    }
+    mbar_init_fence();
   }
   __syncthreads();
 
-  // The weight rows of chunk c into stage c % S, by cp.async (the caller
-  // commits): thread t takes 16 bytes of depth k0 + t / (kBN / 8).
-  auto copy_weights = [&](int c) {
-    const int st = c % S, k0 = c * BK;
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  if (wg == kConsumers) {
+    // The producer warpgroup: warp 0 feeds the weight ring, warp 1 (the
+    // bytes path: warps 1-3) the pixel ring, each as far ahead as its ring
+    // allows, over the same sequence of tiles as the consumers.
+    setmaxnreg_dec<40>();
+    if (warp == 0) {
+      if (lane == 0) {
+        int n = 0;
+        for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+          const int n0 = u % p.n_tiles * kBN;
+          for (int i = 0; i < p.chunks; ++i, ++n) {
+            const int s = n % kWStages;
+            mbar_wait(w_empty + 8 * s, (n / kWStages & 1) ^ 1);
+            // Stage i: channel i % 3 of row block i / 3 (past P^2: zeros).
+            const int j = i / 3, c = i - 3 * j;
+            const unsigned dst = smem_addr(wst + s * kWStageBytes), bar = w_full + 8 * s;
+            mbar_arrive_expect_tx(bar, kWStageBytes);
 #pragma unroll
-    for (int v = 0; v < G::WVecs; ++v) {
-      const int t = tid + v * kThreads, kk = t / (kBN / 8), col = (t % (kBN / 8)) * 8;
-      const uint16_t r = wrow[k0 + kk];
-      const bool ok = r != kNoRow && n0 + col < D;
-      cp_async16(&Bs[st][kk][col], ok ? w + (size_t)r * D + n0 + col : w, ok);
-    }
-  };
-  // One staged chunk through the tensor cores: per 16 of depth, the warp's
-  // two 16-row A fragments (ldmatrix) against its eight 8-column B
-  // fragments (ldmatrix.trans of the [k][n] tile), 16 mma.m16n8k16.
-  // acc[i][j] holds rows wm*32 + i*16 + {g, g+8}, columns wn*64 + j*8 +
-  // {2t, 2t+1} (g = lane / 4, t = lane % 4).
-  float acc[2][8][4] = {};
-  const int a_row = wm * kWarpM + (lane & 15), a_col = (lane >> 4) * 8;
-  const int b_row = (lane & 7) + ((lane >> 3) & 1) * 8, b_col = wn * kWarpN + (lane >> 4) * 8;
-  auto product = [&](int a, int b) {
-    const unsigned a0 = smem_addr(&As[a][a_row][a_col]), b0 = smem_addr(&Bs[b][b_row][b_col]);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t fa[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) ldmatrix_x4(fa[i], a0 + 2 * (i * 16 * LdA + kk));
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t fb[4];
-        ldmatrix_x4_trans(fb, b0 + 2 * (kk * kLdB + j * 16));
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[i][2 * j], fa[i], fb[0], fb[1]);
-          mma_bf16(acc[i][2 * j + 1], fa[i], fb[2], fb[3]);
+            for (int q = 0; q < 4; ++q)
+              tma_load_3d(dst + q * kSlab, &wmap, bar, n0 + 64 * q, kBK * j, c);
+          }
         }
       }
-    }
-  };
-
-  if constexpr (kVec == 16) {
-    // Thread t owns 16-byte runs t + i*kThreads of every chunk: run idx is
-    // row idx / (BK/16), depth (idx % (BK/16)) * 16 of the chunk.
-    auto issue = [&](int c) {              // always commits, so groups count chunks
-      if (c < chunks) {
-        const int st = c % S, k0 = c * BK;
+    } else if (kBytes || warp == 1) {
+      // Pixel stage j of a tile: image rows j * nph.. (nph of them) of its
+      // patch rows R0..R1, each patch row's seg bytes contiguous in the
+      // batch and in the stage.
+      const int filler = threadIdx.x % 128 - 32;         // bytes path: 0..95
+      int n = 0;
+      for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+        const int m0 = u / p.n_tiles * kBM, R0 = m0 / p.gw;
+        const int rows = (min(m0 + kBM, p.M) - 1) / p.gw - R0 + 1;
+        for (int j = 0; j < p.groups; ++j, ++n) {
+          const int s = n % p.pstages;
+          const unsigned bar = p_full + 8 * s;
+          unsigned char* const dst = pst + s * p.pstage_bytes;
+          const uint8_t* const src = p.img + ((size_t)R0 * P + j * p.nph) * row3;
+          mbar_wait(p_empty + 8 * s, (n / p.pstages & 1) ^ 1);
+          if (kBytes) {
+            // The aligned 16-byte blocks that cover each segment: one load
+            // a block inside the batch, byte loads of the segment's bytes
+            // in a block that the batch's first or last byte cuts; stored
+            // byte by byte.
+            const int vecs = (seg + 30) / 16;                    // a segment's blocks, at most
+#pragma unroll 4
+            for (int e = filler; e < rows * vecs; e += kByteFillers) {
+              const int r = e / vecs, v = e - r * vecs;
+              const uint8_t* const from = src + (size_t)r * P * row3;
+              const int x0 = 16 * v - static_cast<int>(reinterpret_cast<uintptr_t>(from) % 16);
+              if (x0 >= seg) continue;
+              const uint8_t* const at = from + x0;
+              if (at >= p.img && at + 16 <= p.img + p.bytes) {
+                const uint4 q = *reinterpret_cast<const uint4*>(at);
+                const uint32_t w4[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-        for (int i = 0; i < G::PixLoads; ++i) {
-          const int idx = tid + i * kThreads, row = idx / (BK / 16), d = (idx % (BK / 16)) * 16;
-          const int base = row_base[row], off = koff[k0 + d];
-          const bool ok = base >= 0 && off >= 0;
-          cp_async16(&raw[st][row][d], ok ? img + base + off : img, ok);
+                for (int b = 0; b < 16; ++b)
+                  if (x0 + b >= 0 && x0 + b < seg) dst[r * seg + x0 + b] = w4[b / 4] >> 8 * (b % 4);
+              } else {
+                for (int b = max(0, -x0); b < 16 && x0 + b < seg; ++b) dst[r * seg + x0 + b] = at[b];
+              }
+            }
+            mbar_arrive(bar);
+          } else {
+            fence_proxy_async();                         // the consumers read it last
+            if (lane == 0) mbar_arrive_expect_tx(bar, rows * seg);
+            __syncwarp();
+            for (int r = lane; r < rows; r += 32)
+              bulk_copy_g2s(smem_addr(dst + r * seg), src + (size_t)r * P * row3, seg, bar);
+          }
         }
-        copy_weights(c);
       }
-      cp_async_commit();
-    };
-    auto widen = [&](int c) {              // own runs of chunk c -> As[c & 1]
-#pragma unroll
-      for (int i = 0; i < G::PixLoads; ++i) {
-        const int idx = tid + i * kThreads, row = idx / (BK / 16), d = (idx % (BK / 16)) * 16;
-        const uint4 p = *reinterpret_cast<const uint4*>(&raw[c % S][row][d]);
-        uint4* dst = reinterpret_cast<uint4*>(&As[c & 1][row][d]);
-        dst[0] = make_uint4(bytes_to_bf16x2(p.x, 0), bytes_to_bf16x2(p.x, 2),
-                            bytes_to_bf16x2(p.y, 0), bytes_to_bf16x2(p.y, 2));
-        dst[1] = make_uint4(bytes_to_bf16x2(p.z, 0), bytes_to_bf16x2(p.z, 2),
-                            bytes_to_bf16x2(p.w, 0), bytes_to_bf16x2(p.w, 2));
-      }
-    };
-#pragma unroll
-    for (int c = 0; c < S - 1; ++c) issue(c);
-    cp_async_wait<S - 2>();                // chunk 0 has landed
-    widen(0);
-    __syncthreads();
-    for (int ci = 0; ci < chunks; ++ci) {
-      issue(ci + S - 1);                   // into the stage chunk ci - 1 left
-      product(ci & 1, ci % S);
-      cp_async_wait<S - 2>();              // chunk ci + 1 has landed
-      if (ci + 1 < chunks) widen(ci + 1);  // As[(ci+1) & 1] was last read before the
-      __syncthreads();                     // previous barrier
     }
   } else {
-    // Byte path: depth k0 + lane of rows warp + kWarps*j, through registers.
-    uint32_t pix[G::PixLoads];
-    auto load = [&](int k0) {
-      const int off = koff[k0 + lane];
+    setmaxnreg_inc<232>();
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = wg * 64 + warp * 16 + g;              // this thread's tile rows r0, r0 + 8
+    const bool signal = threadIdx.x % 128 == 0;          // the warpgroup's w_empty arrival
+    float acc[128];
 #pragma unroll
-      for (int j = 0; j < G::PixLoads; ++j) {
-        const int base = row_base[warp + kWarps * j];
-        pix[j] = base >= 0 && off >= 0 ? img[base + off] : 0u;
-      }
-    };
-    auto store = [&](int a) {
-#pragma unroll
-      for (int j = 0; j < G::PixLoads; ++j)
-        As[a][warp + kWarps * j][lane] =
-            __ushort_as_bfloat16(__float_as_uint(byte_to_float(pix[j], 0)) >> 16);
-    };
-    load(0);
-    copy_weights(0);
-    cp_async_commit();
-    store(0);
-    cp_async_wait<0>();
-    __syncthreads();
-    for (int ci = 0; ci < chunks; ++ci) {
-      const int s = ci & 1;
-      const bool more = ci + 1 < chunks;
-      if (more) {                          // in flight during the product below
-        load((ci + 1) * BK);
-        copy_weights(ci + 1);
-        cp_async_commit();
-      }
-      product(s, s);
-      if (more) {
-        store(s ^ 1);                      // buffer s ^ 1 was last read before the
-        cp_async_wait<0>();                // previous barrier
-      }
-      __syncthreads();
-    }
-  }
-
-  // Epilogue from the registers: add the fp32 bias, round once, write pairs.
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int n = n0 + wn * kWarpN + j * 8 + t2;
-    if (n >= D) continue;                  // D is even: n + 1 < D too
-    const float2 bv = bias != nullptr ? load2(bias + n) : make_float2(0.f, 0.f);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    uint32_t fa[8], fb[8];                               // A fragments of two stages in flight
+    int wn = 0, pn = 0;                                  // weight / pixel stages consumed
+    for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+      const int mt = u / p.n_tiles, m0 = mt * kBM, n0 = (u - mt * p.n_tiles) * kBN;
+      int off[2];                                        // rows' patch origins in a stage
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm * kWarpM + i * 16 + g + h * 8;
-        if (m < M)
-          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * D + n) = __floats2bfloat162_rn(
-              acc[i][j][2 * h] + bv.x, acc[i][j][2 * h + 1] + bv.y);
+        const int m = m0 + r0 + 8 * h;
+        if (m < p.M) {
+          const int R = m / p.gw;
+          off[h] = (R - m0 / p.gw) * seg + (m - R * p.gw) * P3;
+        } else {
+          off[h] = 0;                                    // past M: read, never stored
+        }
+      }
+      const unsigned char* px = pst;
+      // The 6 bytes (2 pixels x 3 channels) of each pixel pair this thread
+      // reads in a row block, [row h][k16 step s][pair]: lo bytes 0-3, hi 4-5.
+      uint32_t raw[2][2][2][2];
+      // Stage i = 3j + c: at c = 0 wait for block j's pixels (first of a
+      // pixel stage), read its pixel pairs into raw and release the pixel
+      // stage after its last block; build the A fragments of channel c in
+      // `a`; wait for the weights, issue the two k16 products and retire
+      // stage i - 1 (its fragments `prev`, its weight stage).
+      auto step = [&](int i, uint32_t (&a)[8], uint32_t (&prev)[8]) {
+        const int j = i / 3, c = i - 3 * j;
+        if (c == 0 && j < p.blocks) {
+          if (kRuns || j == 0) {
+            mbar_wait(p_full + 8 * (pn % p.pstages), pn / p.pstages & 1);
+            px = pst + pn % p.pstages * p.pstage_bytes;
+          }
+          const int4* kj = tab + (4 * (kRuns ? 0 : j) + t) * 2;
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            const int4 k = kj[s];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const unsigned char* x = px + off[h];
+              if (P % 2 == 0) {                          // pixels r, r + 1: one 6-byte run
+#pragma unroll
+                for (int q = 0; q < 2; ++q) {
+                  const uint16_t* y = reinterpret_cast<const uint16_t*>(x + (q ? k.z : k.x));
+                  raw[h][s][q][0] = y[0] | static_cast<uint32_t>(y[1]) << 16;
+                  raw[h][s][q][1] = y[2];
+                }
+              } else {                                   // a pair may end a patch row
+#pragma unroll
+                for (int q = 0; q < 2; ++q) {
+                  const unsigned char* y0 = x + (q ? k.z : k.x);
+                  const unsigned char* y1 = x + (q ? k.w : k.y);
+                  raw[h][s][q][0] = y0[0] | y0[1] << 8 | y0[2] << 16 | uint32_t{y1[0]} << 24;
+                  raw[h][s][q][1] = y1[1] | y1[2] << 8;
+                }
+              }
+            }
+          }
+          if (kRuns || j == p.blocks - 1) {
+            __syncwarp();
+            if (lane == 0) mbar_arrive(p_empty + 8 * (pn % p.pstages));
+            ++pn;
+          }
+        }
+        // Channel c of the pixels r, r + 1: bytes c and c + 3 of a run.
+        const uint32_t sel = c | (c + 3) << 4;
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              a[4 * s + 2 * q + h] = bf16x2_of_bytes(
+                  __byte_perm(raw[h][s][q][0], raw[h][s][q][1], sel));
+        const int s = wn % kWStages;
+        mbar_wait(w_full + 8 * s, wn / kWStages & 1);
+        // B: four 64-column boxes 4 KiB apart (leading byte offset), 8-row
+        // groups 1 KiB apart (stride byte offset); k16 step 1 starts 16 rows on.
+        uint64_t d0 = gmma_desc_sw128(smem_addr(wst + s * kWStageBytes), kSlab, 1024);
+        uint64_t d1 = d0 + (16 * 128 >> 4);
+        // Every operand ready before the products start.
+#pragma unroll
+        for (int r = 0; r < 8; ++r) reg_fence(a[r]);
+        reg_fence(d0);
+        reg_fence(d1);
+        wgmma_fence();
+        wgmma_m64n256k16_rs(acc, a[0], a[1], a[2], a[3], d0, i > 0);
+        wgmma_m64n256k16_rs(acc, a[4], a[5], a[6], a[7], d1, 1);
+        wgmma_commit();
+        wgmma_wait<1>();
+#pragma unroll
+        for (int r = 0; r < 8; ++r) reg_fence(prev[r]);
+        if (i > 0 && signal) mbar_arrive(w_empty + 8 * ((wn - 1) % kWStages));
+        ++wn;
+      };
+      // Both fragment buffers named in one body: with an odd tail ptxas
+      // serialises every wgmma (C7513).  Stages past the depth are zeros.
+      for (int i = 0; i < p.chunks; i += 2) {
+        step(i, fa, fb);
+        step(i + 1, fb, fa);
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 128; ++i) reg_fence(acc[i]);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        reg_fence(fa[r]);
+        reg_fence(fb[r]);
+      }
+      if (signal) mbar_arrive(w_empty + 8 * ((wn - 1) % kWStages));
+
+      // Epilogue: fp32 bias, one rounding, 16-byte stores of 8 columns.
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        uint32_t v[2][4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * q + jj;
+          const float2 b = __bfloat1622float2(bias2[(n0 + 8 * j + 2 * t) / 2]);
+          v[0][jj] = pack_bf16(acc[4 * j] + b.x, acc[4 * j + 1] + b.y);
+          v[1][jj] = pack_bf16(acc[4 * j + 2] + b.x, acc[4 * j + 3] + b.y);
+        }
+        const int n = n0 + 32 * q + 8 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          transpose_quad(v[h], t);
+          const int m = m0 + r0 + 8 * h;
+          if (m < p.M && n < p.D)
+            *reinterpret_cast<uint4*>(p.out + (size_t)m * p.D + n) =
+                make_uint4(v[h][0], v[h][1], v[h][2], v[h][3]);
+        }
       }
     }
   }
 }
 
-template <int kVec>
-cudaError_t launch(const void* img, const void* w, const void* bias, void* out,
-                   int B, int H, int W, int P, int D, cudaStream_t stream) {
-  const int gw = W / P, N = (H / P) * gw, M = B * N;
-  const dim3 grid((D + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  if (grid.y > 65535u || 3 * P * P >= kNoRow) return cudaErrorInvalidConfiguration;
-  const size_t smem = Tile<kVec>::smem_bytes(3 * P * P);
-  const cudaError_t set = cudaFuncSetAttribute(
-      patch_embed_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (set != cudaSuccess) return set;                          // a patch too large
-  patch_embed_kernel<kVec><<<grid, kThreads, smem, stream>>>(
-      static_cast<const uint8_t*>(img), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out),
-      M, D, H, W, P, gw, N);
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime, so the library needs no -lcuda.
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
+                                                                 : nullptr;
+  }();
+  return fn;
+}
+
+template <bool kRuns, bool kBytes>
+cudaError_t launch(const CUtensorMap& map, const Params& p, size_t smem, cudaStream_t stream) {
+  const auto kernel = patch_embed_wgmma_kernel<kRuns, kBytes>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  int dev = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  kernel<<<std::min(p.units, sms), kThreads, smem, stream>>>(map, p);
   return cudaGetLastError();
 }
 
@@ -300,10 +428,52 @@ cudaError_t launch(const void* img, const void* w, const void* bias, void* out,
 }  // namespace clipcap
 
 extern "C" int clipcap_patch_embed(const void* img, const void* w, const void* bias, void* out,
-                                   int B, int H, int W, int P, int D, void* stream) {
+                                   int B, int H, int W, int P, int D, int path, void* stream) {
   using namespace clipcap;
+  const bool runs = path & kPathRuns, bytes = path & kPathBytes;
+  const int gw = W / P, M = B * (H / P) * gw;
+  if (runs && P != 16 && P != 32) return static_cast<int>(cudaErrorInvalidValue);
+  // The copy engine's starts and lengths are 16-byte aligned: the batch, and
+  // an image row (runs) or a patch row (span).  Anything else is the bytes
+  // path's, and a copy-engine path given it is refused.
+  if (!bytes && (reinterpret_cast<uintptr_t>(img) % 16 || 3 * W * (runs ? 1 : P) % 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{static_cast<const uint8_t*>(img), static_cast<size_t>(B) * H * W * 3,
+           static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out),
+           M, D, W, P, gw};
+  p.n_tiles = (D + kBN - 1) / kBN;
+  p.units = (M + kBM - 1) / kBM * p.n_tiles;
+  p.blocks = (P * P + kBK - 1) / kBK;
+  p.chunks = (3 * p.blocks + 1) / 2 * 2;                // even: see the product loop
+  p.nph = runs ? kBK / P : P;
+  p.groups = P / p.nph;
+  int rows = 0;                                        // the widest tile's patch rows
+  for (int m0 = 0; m0 < M; m0 += kBM)
+    rows = std::max(rows, (std::min(m0 + kBM, M) - 1) / gw - m0 / gw + 1);
+  p.pstage_bytes = (rows * p.nph * 3 * W + 15) / 16 * 16;
+  const size_t fixed = 1024 + kWStages * kWStageBytes +
+                       128 * (runs ? 1 : p.blocks) + 2 * p.n_tiles * kBN +
+                       8 * 2 * (kWStages + kPStages);
+  p.pstages = runs ? kPStages : 2;                     // as many as fit, at least one
+  while (p.pstages > 1 && fixed + p.pstages * (size_t)p.pstage_bytes > kSmemMax) --p.pstages;
+  const size_t smem = fixed + p.pstages * (size_t)p.pstage_bytes;
+  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidConfiguration);
+
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap map;
+  // The weight as (n, ph * P + pw, c): 2-byte, 2D-byte and 2DP^2-byte strides.
+  const cuuint64_t d = static_cast<cuuint64_t>(D), pp = static_cast<cuuint64_t>(P) * P;
+  const cuuint64_t dims[3] = {d, pp, 3}, strides[2] = {2 * d, 2 * d * pp};
+  const cuuint32_t box[3] = {64, kBK, 1}, unit[3] = {1, 1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(w), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+
   const auto s = static_cast<cudaStream_t>(stream);
-  const bool vec = P % 16 == 0 && reinterpret_cast<uintptr_t>(img) % 16 == 0;
-  return static_cast<int>(vec ? launch<16>(img, w, bias, out, B, H, W, P, D, s)
-                              : launch<1>(img, w, bias, out, B, H, W, P, D, s));
+  return static_cast<int>(runs ? (bytes ? launch<true, true>(map, p, smem, s)
+                                        : launch<true, false>(map, p, smem, s))
+                               : (bytes ? launch<false, true>(map, p, smem, s)
+                                        : launch<false, false>(map, p, smem, s)));
 }

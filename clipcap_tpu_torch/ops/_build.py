@@ -53,8 +53,8 @@ SIGNATURES = {
     "clipcap_fused_sdpa": [_P] * 4 + [_I] * 5 + [_F, _P],
     # table, n, total, lr, b1, b2, eps, wd, bc1, bc2, stream
     "clipcap_fused_adamw": [_P, _I, _L, _F, _F, _F, _F, _F, _F, _F, _P],
-    # img, w, bias (or NULL), out, B, H, W, P, D, stream
-    "clipcap_patch_embed": [_P] * 4 + [_I] * 5 + [_P],
+    # img, w, bias (or NULL), out, B, H, W, P, D, pixel path, stream
+    "clipcap_patch_embed": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 

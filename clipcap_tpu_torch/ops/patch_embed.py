@@ -38,6 +38,26 @@ def patch_embed_supported(images: Tensor, patch: int) -> bool:
     return C == 3 and H % patch == 0 and W % patch == 0 and B >= 1
 
 
+# The kernel's pixel paths (bit flags of the C entry's ``path``): how a
+# tile's pixels reach shared memory.  RUNS stages the image rows that one
+# 32-row block of a patch's pixels covers (P = 16, 32), else the tile's
+# whole patch rows as one span; BYTES fills the stages with the producer's
+# own loads where the copy engine cannot address the batch (a start off 16
+# bytes, or rows whose length is not a multiple of 16).
+BYTES, RUNS = 1, 2
+
+
+def pixel_path(shape, patch: int, data_ptr: int) -> int:
+    """The pixel path of a ``[B, H, W, 3]`` uint8 batch at ``data_ptr``: the
+    copy engine's 1-D bulk copies need 16-byte aligned starts and lengths,
+    so runs need a 16-byte multiple image row (3W) and the span a 16-byte
+    multiple patch row (3WP)."""
+    W = shape[2]
+    runs = patch in (16, 32)
+    step = 3 * W if runs else 3 * W * patch
+    return (RUNS if runs else 0) | (0 if data_ptr % 16 == 0 and step % 16 == 0 else BYTES)
+
+
 def patch_embed_ref(images: Tensor, w: Tensor, bias: Optional[Tensor], patch: int) -> Tensor:
     """Plain twin of the kernel: bf16 pixels, fp32 product, fp32 bias, one
     rounding to bf16."""
@@ -77,7 +97,7 @@ def patch_embed(images: Tensor, w: Tensor, bias: Optional[Tensor], patch: int) -
 
     A CPU tensor goes to the twin; a CUDA tensor launches
     ``csrc/patch_embed.cu`` or raises (the kernel refuses a launch whose
-    patches exceed its grid or whose patch exceeds its shared memory)."""
+    tile of pixels exceeds its shared memory)."""
     if images.device.type == "cpu":
         return patch_embed_ref(images, w, bias, patch)
     if images.device.type != "cuda":
@@ -91,7 +111,8 @@ def patch_embed(images: Tensor, w: Tensor, bias: Optional[Tensor], patch: int) -
     with torch.cuda.device(images.device):   # the launch goes to the current device
         code = lib.clipcap_patch_embed(
             images.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
-            out.data_ptr(), B, H, W, patch, D, _build.stream_of(images))
+            out.data_ptr(), B, H, W, patch, D,
+            pixel_path(images.shape, patch, images.data_ptr()), _build.stream_of(images))
     _build.check(code, "patch_embed")
     patch_embed.launches += 1
     return out

@@ -38,8 +38,8 @@ from clipcap_tpu.utils.braceexpand import braceexpand as jbraceexpand
 from clipcap_tpu_torch import convert
 from clipcap_tpu_torch.encoders.args import add_encoder_args
 from clipcap_tpu_torch.models import clip_vit
-from clipcap_tpu_torch.ops.patch_embed import (patch_embed, patch_embed_ref,
-                                               patch_embed_supported)
+from clipcap_tpu_torch.ops.patch_embed import (BYTES, RUNS, patch_embed, patch_embed_ref,
+                                               patch_embed_supported, pixel_path)
 from clipcap_tpu_torch.preprocess import distributor, reader
 from clipcap_tpu_torch.preprocess.args import add_preprocess_args
 from clipcap_tpu_torch.preprocess.preprocess import preprocess, start_preprocess
@@ -93,6 +93,22 @@ def test_patch_embed_wrapper_takes_twin_on_cpu():
                                patch_embed_ref(torch.from_numpy(imgs), w, bias, 14),
                                rtol=0, atol=0)
     assert patch_embed.launches == before        # the count is of kernel launches
+
+
+@pytest.mark.parametrize("shape,patch,ptr,path", [
+    ((256, 224, 224, 3), 14, 0, 0),                  # ViT-L/14: span, copy engine
+    ((512, 224, 224, 3), 32, 0, RUNS),               # ViT-B/32: runs, copy engine
+    ((3, 32, 32, 3), 16, 0, RUNS),                   # test-tiny
+    ((3, 32, 48, 3), 16, 0, RUNS),                   # W = 48: rows of 144 bytes
+    ((2, 28, 28, 3), 14, 0, BYTES),                  # a patch row of 1,176 bytes
+    ((512, 224, 224, 3), 32, 1, RUNS | BYTES),       # a batch off 16-byte alignment
+    ((256, 224, 224, 3), 14, 8, BYTES),
+    ((256, 336, 336, 3), 14, 0, 0),                  # ViT-L/14@336px: span, copy engine
+])
+def test_patch_embed_pixel_path(shape, patch, ptr, path):
+    """The copy engine takes what it can address (16-byte aligned starts and
+    lengths); everything else takes the bytes path of the same kernel."""
+    assert pixel_path(shape, patch, ptr) == path
 
 
 def test_patch_embed_supported_gating():
@@ -346,15 +362,35 @@ def cuda():
     return torch.device("cuda")
 
 
+def _kernel_case(B, H, W, P, D, offset, fill=None):
+    ident = "-".join(map(str, (B, H, W, P, D, offset)))
+    return pytest.param(B, H, W, P, D, offset, fill,
+                        id=ident if fill is None else f"{ident}-all{fill}")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_bias", [True, False])
-@pytest.mark.parametrize("B,H,W,P,D,offset", [(*g, 0) for g in GEOMETRIES] + [
-    (3, 224, 224, 14, 1024, 0), (5, 224, 224, 32, 768, 0),
-    # A batch that does not start 16-byte aligned takes the kernel's byte
-    # gather even where P % 16 == 0.
-    (3, 32, 48, 16, 64, 1), (2, 64, 96, 32, 64, 1)])
-def test_patch_embed_kernel_matches_twin(cuda, B, H, W, P, D, offset, with_bias):
+@pytest.mark.parametrize("B,H,W,P,D,offset,fill", [_kernel_case(*g, 0) for g in GEOMETRIES] + [
+    _kernel_case(3, 224, 224, 14, 1024, 0), _kernel_case(5, 224, 224, 32, 768, 0),
+    # A batch that does not start 16-byte aligned takes the kernel's bytes
+    # path (the producer's own loads instead of the copy engine).
+    _kernel_case(3, 32, 48, 16, 64, 1), _kernel_case(2, 64, 96, 32, 64, 1),
+    _kernel_case(3, 224, 224, 14, 1024, 1),
+    # A width that ends inside the 256-column tile; 160 tiles of 128
+    # patches x 256 columns, more than one round of the persistent grid.
+    _kernel_case(2, 224, 224, 14, 320, 0), _kernel_case(40, 224, 224, 14, 320, 0),
+    # 255 in every pixel: the top of the exact uint8 -> bf16 widening.
+    _kernel_case(4, 224, 224, 14, 1024, 0, fill=255),
+    _kernel_case(4, 224, 224, 32, 768, 0, fill=255),
+    # An odd patch: the copy engine's span, and the bytes path.
+    _kernel_case(2, 112, 112, 7, 64, 0), _kernel_case(2, 28, 28, 7, 64, 0),
+    # ViT-L/14@336px: a tile's 6 patch rows fit in shared memory once, so
+    # the pixel ring has one stage; M = 1,728 ends inside a tile; both paths.
+    _kernel_case(3, 336, 336, 14, 1024, 0), _kernel_case(3, 336, 336, 14, 1024, 1)])
+def test_patch_embed_kernel_matches_twin(cuda, B, H, W, P, D, offset, fill, with_bias):
     imgs, w, bias = _patch_inputs(B * P, B, H, W, P, D)
+    if fill is not None:
+        imgs[...] = fill
     flat = torch.empty(imgs.size + offset, dtype=torch.uint8, device=cuda)
     imgs = flat[offset:].view(imgs.shape).copy_(torch.from_numpy(imgs))
     w = w.to(cuda)
@@ -367,6 +403,24 @@ def test_patch_embed_kernel_matches_twin(cuda, B, H, W, P, D, offset, with_bias)
     assert patch_embed.launches == before + 1
     scale = want.float().abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2 ** -7 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,path", [(14, 0), (16, RUNS)])
+def test_patch_embed_entry_refuses_copy_engine_off_alignment(cuda, P, path):
+    """Told to use the copy engine on a batch off 16 bytes, the C entry
+    raises instead of faulting the copy."""
+    from clipcap_tpu_torch.ops import _build
+    flat = torch.zeros(3 * 224 * 224 * 3 + 1, dtype=torch.uint8, device=cuda)
+    imgs = flat[1:].view(3, 224, 224, 3)
+    w = torch.zeros(3 * P * P, 64, dtype=torch.bfloat16, device=cuda)
+    out = torch.empty(3, (224 // P) ** 2, 64, dtype=torch.bfloat16, device=cuda)
+    code = _build.load_library().clipcap_patch_embed(
+        imgs.data_ptr(), w.data_ptr(), None, out.data_ptr(), 3, 224, 224, P, 64, path,
+        _build.stream_of(imgs))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.check(code, "patch_embed")
+    assert pixel_path(imgs.shape, P, imgs.data_ptr()) == path | BYTES
 
 
 @pytest.mark.cuda
