@@ -34,7 +34,11 @@ Phases (any failure exits non-zero before the last line):
    tiles, and the four int8/bf16 region mixes; the manual kernel at the
    same bounds (S = 2, 3 and 4, both layouts), and over a cache and a mask
    that hold NaN outside each row's bounds (finite, and equal to the twin
-   on the clean ones);
+   on the clean ones); the attention kernels at N = 1, 63, 64, 65, 257 and
+   577 (577 packed only) with and without causal, on 1,024 heads (the
+   persistent grid wraps), at N = 900 (K and V through the ring), at
+   scales -0.2, 0 and 0.5, and on operands at the start of buffers filled
+   with NaN past their end (finite, and equal to the twin);
 3. the captioning slice at full width (CLIP ViT-B/32, the 8-layer
    transformer mapper, GPT-2 124M) with seeded weights, through the public
    entry points: save an ``.npz`` + YAML, ``load(..., device="cuda")``,
@@ -49,8 +53,9 @@ Phases (any failure exits non-zero before the last line):
 4. timings (information, not gates): beam-5 captions/s (GPT-2 + mapper in
    bf16, batch 128, 67 new tokens), ViT-B/32 embeds/s (batch 512, uint8),
    each kernel against its twin (``sdpa_packed`` at ViT-B/32 b512, the text
-   tower b5 and ViT-L/14 b256; ``fused_sdpa`` at ViT-B/32 b512 and ViT-L/14
-   b256, head-major);
+   tower b5, ViT-L/14 b256 and ViT-L/14@336px b256; ``fused_sdpa`` at
+   ViT-B/32 b512 and ViT-L/14 b256, head-major; the attention rows on both
+   clocks, with the L2 flushed before each call, and in TFLOP/s);
 5. a ``torch.profiler`` trace of one batch of each timed workload: wall
    time, device busy time and idle share, kernel launches, and the kernels
    that take the most device time;
@@ -126,8 +131,8 @@ where a kernel is shorter than its wrapper's host time it reads the host),
 ``device_ms`` the mean kernel duration per call that ``torch.profiler``
 records (``device_ms``); the decode rows (phase 4a row 1, phase 7d's int8
 and two-phase rows, phase 7f's tile-major and manual rows, phase 9's
-eval-shape manual row) give both, for the kernel, the twin and the
-library call.
+eval-shape manual row) and the attention rows (phase 4a) give both, for
+the kernel, the twin and the library call.
 
 Output: one line per finding, then the kernels as one JSON object, then the
 card's ``name, power.limit``, then ``{"ok": true, "device": {...}}``.
@@ -311,6 +316,7 @@ def check_kernels(dev):
                        for _ in range(3))
             compare("fused_sdpa", f"B={B} H={H} N={N} causal={causal}", dtype,
                     fused_sdpa(q, k, v, causal=causal), fused_sdpa_ref(q, k, v, causal=causal))
+        check_attention_edges(dev, g, dtype, compare)
         check_kv_kernels(dev, g, dtype, compare)
         check_manual_kernels(dev, g, dtype, compare)
         check_fragment_edges(dev, g, dtype, compare)
@@ -491,6 +497,65 @@ def check_manual_edges(q, kv, mask, lo, hi, label, dtype, compare):
 
 # fused_sdpa's phase-2 shapes: (B, H, N, causal).
 FUSED_SHAPES = ((8, 12, 50, False), (5, 8, 77, True), (32, 16, 257, False), (4, 16, 512, False))
+
+# The attention kernel's edge cases in phase 2: rows that end a query tile
+# or a 16-key block, or fall one short or one past (N = 1, 63, 64, 65), the
+# towers' rows (257, 577; 577 for the packed form only: fused_sdpa stops at
+# 512), and (B, H, N) = (64, 16, 65): 1,024 heads, so that the persistent
+# grid (one block an SM) walks its heads more than once.
+ATTENTION_EDGE_N = (1, 63, 64, 65, 257, 577)
+
+
+def check_attention_edges(dev, g, dtype, compare):
+    """Phase 2, ``sdpa_packed`` and ``fused_sdpa`` at the tail rows of
+    ``ATTENTION_EDGE_N``, with and without causal; a grid that wraps; rows
+    longer than shared memory holds (N = 900: K and V through the ring);
+    scales of either sign and 0 (the kernel folds the scale into the
+    exponent); and operands at the start of buffers filled with NaN past
+    their end (TMA reads nothing outside an operand: the output must be
+    finite and equal to the twin's)."""
+    from clipcap_tpu_torch.ops.attention import (fused_sdpa, fused_sdpa_ref, sdpa_packed,
+                                                 sdpa_packed_ref)
+
+    H = 4
+    cases = [(3, N, causal) for N in ATTENTION_EDGE_N for causal in (False, True)]
+    cases += [(64, 65, False), (2, 900, False), (2, 900, True)]
+    for B, N, causal in cases:
+        heads = 16 if B == 64 else H
+        qkv = torch.randn(B, N, 3 * heads * 64, generator=g, device=dev).to(dtype)
+        compare("sdpa_packed", f"edge B={B} N={N} H={heads} causal={causal}", dtype,
+                sdpa_packed(qkv, heads, causal=causal), sdpa_packed_ref(qkv, heads, causal=causal))
+        if N <= 512:
+            q, k, v = (torch.randn(B, heads, N, 64, generator=g, device=dev).to(dtype)
+                       for _ in range(3))
+            compare("fused_sdpa", f"edge B={B} H={heads} N={N} causal={causal}", dtype,
+                    fused_sdpa(q, k, v, causal=causal), fused_sdpa_ref(q, k, v, causal=causal))
+    qkv = torch.randn(3, 130, 3 * H * 64, generator=g, device=dev).to(dtype)
+    for scale in (-0.2, 0.0, 0.5):
+        compare("sdpa_packed", f"scale={scale} B=3 N=130 H={H} causal=True", dtype,
+                sdpa_packed(qkv, H, scale=scale, causal=True),
+                sdpa_packed_ref(qkv, H, scale=scale, causal=True))
+    B, N = 3, 65
+    size = B * N * 3 * H * 64
+    buf = torch.full((size + 4096,), float("nan"), dtype=dtype, device=dev)
+    qkv = buf[:size].view(B, N, 3 * H * 64)
+    qkv.copy_(torch.randn(B, N, 3 * H * 64, generator=g, device=dev))
+    ops = []
+    for _ in range(3):
+        b = torch.full((B * H * N * 64 + 4096,), float("nan"), dtype=dtype, device=dev)
+        ops.append(b[:B * H * N * 64].view(B, H, N, 64))
+        ops[-1].copy_(torch.randn(B, H, N, 64, generator=g, device=dev))
+    for causal in (False, True):
+        got = sdpa_packed(qkv, H, causal=causal)
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"sdpa_packed read past its operand (causal={causal})")
+        compare("sdpa_packed", f"NaN past the operand B={B} N={N} causal={causal}", dtype, got,
+                sdpa_packed_ref(qkv, H, causal=causal))
+        got = fused_sdpa(*ops, causal=causal)
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"fused_sdpa read past its operands (causal={causal})")
+        compare("fused_sdpa", f"NaN past the operands B={B} N={N} causal={causal}", dtype, got,
+                fused_sdpa_ref(*ops, causal=causal))
 
 
 # Patch-embed shapes: (batch, image side, patch, width).
@@ -713,35 +778,50 @@ def time_kernels(dev, tag: str):
     print(f"time [{tag}] flash_decode beam R={R} H={H} K={K} u_valid={u} bf16: "
           f"{out['flash_decode']}")
     # The row of the kernels JSON is ViT-B/32 b512 (the captioning slice);
-    # ViT-L/14 b256 (N = 257) is the preprocess path's shape.  Bound: q, k,
-    # v read and the context written once; 4·N²·D operations per sample
-    # (about half of them under causal: 4·N(N+1)/2·D).
+    # ViT-L/14 b256 (N = 257) is the preprocess path's shape, ViT-L/14@336px
+    # (N = 577) the longest row a tower takes.  Bound: q, k, v read and the
+    # context written once; 4·N²·D operations per sample (about half of
+    # them under causal: 4·N(N+1)/2·D).  Device clock for the kernel (one
+    # launch: its traces count only it), the twin and SDPA; the kernel also
+    # with the L2 flushed before each call (the text tower's qkv fits in the
+    # 50 MB L2 back to back; the towers' batches, 118-908 MB, do not).
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def attention_times(kernel, twin, library, B, N, D, causal):
+        t = {"ms": cuda_ms(kernel), "device_ms": device_ms(kernel, only="sdpa"),
+             **timed(twin, "plain_"), **timed(library, "library_"),
+             "cold_device_ms": device_ms(lambda: (flush.zero_(), kernel()), only="sdpa"),
+             **attention_bound(B, N, D, causal)}
+        clock = "device_ms" if t["device_ms"] is not None else "ms"
+        pairs = N * (N + 1) // 2 if causal else N * N
+        t.update(tflops=4 * B * pairs * D / t[clock] / 1e9, tflops_clock=clock)
+        return t
+
     for B, N, D, H, causal, label, key in (
             (512, 50, 768, 12, False, "ViT-B/32 b512", "sdpa_packed"),
-            (5, 77, 512, 8, True, "text tower b5", None),
-            (256, 257, 1024, 16, False, "ViT-L/14 b256", "sdpa_packed_vit_l14")):
+            (5, 77, 512, 8, True, "text tower b5", "sdpa_packed_text_b5"),
+            (256, 257, 1024, 16, False, "ViT-L/14 b256", "sdpa_packed_vit_l14"),
+            (256, 577, 1024, 16, False, "ViT-L/14@336px b256", "sdpa_packed_vit_l14_336")):
         qkv = torch.randn(B, N, 3 * D, generator=g, device=dev).to(bf)
         heads = qkv.view(B, N, 3, H, D // H).permute(2, 0, 3, 1, 4)
-        t = {"ms": cuda_ms(lambda: sdpa_packed(qkv, H, causal=causal)),
-             "plain_ms": cuda_ms(lambda: sdpa_packed_ref(qkv, H, causal=causal)),
-             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                 *heads, is_causal=causal)),
-             **attention_bound(B, N, D, causal)}
-        if key:
-            out[key] = t
-        print(f"time [{tag}] sdpa_packed {label} bf16: {t}")
+        out[key] = t = attention_times(
+            lambda: sdpa_packed(qkv, H, causal=causal),
+            lambda: sdpa_packed_ref(qkv, H, causal=causal),
+            lambda: F.scaled_dot_product_attention(*heads, is_causal=causal), B, N, D, causal)
+        print(f"time [{tag}] sdpa_packed {label} bf16: {t}; {t['tflops']:.1f} TFLOP/s "
+              f"({t['tflops_clock']})")
         del qkv, heads
+        torch.cuda.empty_cache()
     # fused_sdpa, head-major: its row is ViT-L/14 b256 (the façade's call in
     # phase 3), ViT-B/32 b512 beside it.
     for B, H, N, label, key in ((512, 12, 50, "ViT-B/32 b512", "fused_sdpa_vit_b32"),
                                 (256, 16, 257, "ViT-L/14 b256", "fused_sdpa")):
         q, k, v = (torch.randn(B, H, N, 64, generator=g, device=dev).to(bf) for _ in range(3))
-        t = {"ms": cuda_ms(lambda: fused_sdpa(q, k, v)),
-             "plain_ms": cuda_ms(lambda: fused_sdpa_ref(q, k, v)),
-             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
-             **attention_bound(B, N, H * 64, False)}
-        out[key] = t
-        print(f"time [{tag}] fused_sdpa {label} [{B}, {H}, {N}, 64] bf16: {t}")
+        out[key] = t = attention_times(
+            lambda: fused_sdpa(q, k, v), lambda: fused_sdpa_ref(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v), B, N, H * 64, False)
+        print(f"time [{tag}] fused_sdpa {label} [{B}, {H}, {N}, 64] bf16: {t}; "
+              f"{t['tflops']:.1f} TFLOP/s ({t['tflops_clock']})")
         del q, k, v
     return out
 
@@ -2061,8 +2141,9 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
             **times["flash_decode"]),
         row("sdpa_packed", "sdpa.cu", "clipcap_tpu/ops/attention.py:244",
             launches=launches["sdpa_packed"], max_abs_err=errors["sdpa_packed"],
-            **times["sdpa_packed"],
-            vit_l14_b256={"launches": pre_sdpa_launches, **times["sdpa_packed_vit_l14"]}),
+            **times["sdpa_packed"], text_b5=times["sdpa_packed_text_b5"],
+            vit_l14_b256={"launches": pre_sdpa_launches, **times["sdpa_packed_vit_l14"]},
+            vit_l14_336_b256=times["sdpa_packed_vit_l14_336"]),
         adamw_row,
         row("flash_decode_int8", "flash_decode.cu", "clipcap_tpu/ops/flash_decode.py:407",
             max_abs_err=errors["flash_decode_int8"], **xl_rows["flash_decode_int8"]),

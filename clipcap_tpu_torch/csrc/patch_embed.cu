@@ -72,8 +72,6 @@
 // (cudaErrorInvalidConfiguration).  -Xptxas -v (CUDA 12.8): 168 registers
 // at launch in each of the four instantiations (setmaxnreg then moves
 // them), no spills on the bytes paths, 4 bytes on the copy-engine paths.
-#include <cuda.h>   // CUtensorMap; its encoder is looked up at run time (no -lcuda)
-
 #include <algorithm>
 
 #include "common.cuh"
@@ -115,18 +113,6 @@ __device__ __forceinline__ uint32_t bf16x2_of_bytes(uint32_t x) {
   const float lo = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7440u)) - 8388608.f;
   const float hi = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7441u)) - 8388608.f;
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632u);
-}
-
-// Lane t of each quad holds v[j] for columns 8j + 2t..2t+1 of a 32-column
-// block; afterwards it holds columns 8t..8t+7 (v[j] from lane j).
-__device__ __forceinline__ void transpose_quad(uint32_t (&v)[4], int t) {
-  const bool hi2 = t & 2, hi1 = t & 1;
-  uint32_t s0 = __shfl_xor_sync(0xffffffffu, hi2 ? v[0] : v[2], 2);
-  uint32_t s1 = __shfl_xor_sync(0xffffffffu, hi2 ? v[1] : v[3], 2);
-  if (hi2) { v[0] = s0; v[1] = s1; } else { v[2] = s0; v[3] = s1; }
-  s0 = __shfl_xor_sync(0xffffffffu, hi1 ? v[0] : v[1], 1);
-  s1 = __shfl_xor_sync(0xffffffffu, hi1 ? v[2] : v[3], 1);
-  if (hi1) { v[0] = s0; v[2] = s1; } else { v[1] = s0; v[3] = s1; }
 }
 
 template <bool kRuns, bool kBytes>
@@ -387,28 +373,6 @@ patch_embed_wgmma_kernel(const __grid_constant__ CUtensorMap wmap, const Params 
       }
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime, so the library needs no -lcuda.
-EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
-                                                                 : nullptr;
-  }();
-  return fn;
 }
 
 template <bool kRuns, bool kBytes>

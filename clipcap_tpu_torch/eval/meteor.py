@@ -54,6 +54,7 @@ validation still requires a JVM, which this environment does not have).
 from __future__ import annotations
 
 import gzip
+import logging
 import math
 import os
 import re
@@ -317,6 +318,15 @@ def get_meteor(synonyms=None, paraphrase_path: Optional[str] = None,
             use_compact = os.path.exists(compact_synonyms_path())
     fwords = (load_function_words(function_words_path)
               if function_words_path else None)
+    if synonyms is not None:
+        tier = "the caller's synonym table"
+    elif synonym_paths is not None:
+        tier = f"the WordNet tables {synonym_paths[0]}"
+    elif use_compact:
+        tier = f"the shipped compact table {compact_synonyms_path()}"
+    else:
+        tier = "none (CLIPCAP_METEOR_SYNONYMS=none, or no table found)"
+    logging.getLogger(__name__).info("METEOR synonym stage: %s", tier)
     if synonyms is None:
         compact_unavailable = False
         try:

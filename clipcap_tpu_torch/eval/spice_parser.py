@@ -10,8 +10,11 @@ inside the reference's ``spice-1.0.jar``
 Models train once per process from the committed caption treebank
 (deterministic seed) and are memoized; a gzip JSON cache keyed by the
 treebank digest makes subsequent processes load in milliseconds.  The
-cache location can be overridden with ``CLIPCAP_SPICE_MODEL_CACHE``
-(set it to an unwritable path to force retraining).
+packaged cache (``data/spice_model_cache.json.gz``) is read and never
+written; a retrain goes to this package's own user cache
+(``~/.cache/clipcap_tpu_torch/spice_model_cache.json.gz``), not the JAX
+package's.  ``CLIPCAP_SPICE_MODEL_CACHE`` names the one file read and
+written instead (an unwritable path forces a retrain in every process).
 """
 from __future__ import annotations
 
@@ -44,17 +47,25 @@ PARSER_EPOCHS = 14
 SEED = 1
 
 
+def _packaged_cache() -> str:
+    return os.path.join(_DATA_DIR, "spice_model_cache.json.gz")
+
+
+def _write_path() -> str:
+    """Where retrained models are cached: ``$CLIPCAP_SPICE_MODEL_CACHE``,
+    else this package's user cache.  Never the package's data directory
+    (one user's retrain would replace the shipped cache for every user),
+    never the JAX package's cache."""
+    return os.environ.get("CLIPCAP_SPICE_MODEL_CACHE") or os.path.expanduser(
+        "~/.cache/clipcap_tpu_torch/spice_model_cache.json.gz")
+
+
 def _cache_paths() -> List[str]:
-    """Candidate cache locations, read in order; the first writable one
-    receives retrained models.  The packaged copy ships alongside the
-    treebank; the user cache dir covers read-only installs (root-owned
-    site-packages)."""
-    env = os.environ.get("CLIPCAP_SPICE_MODEL_CACHE")
-    if env:
-        return [env]
-    return [os.path.join(_DATA_DIR, "spice_model_cache.json.gz"),
-            os.path.expanduser(
-                "~/.cache/clipcap_tpu/spice_model_cache.json.gz")]
+    """Cache files read, in order: ``$CLIPCAP_SPICE_MODEL_CACHE`` alone when
+    set; else the packaged copy beside the treebank, then the user cache."""
+    if os.environ.get("CLIPCAP_SPICE_MODEL_CACHE"):
+        return [_write_path()]
+    return [_packaged_cache(), _write_path()]
 
 
 def _treebank_digest() -> str:
@@ -108,25 +119,21 @@ def get_models() -> Tuple[PerceptronTagger, ArcStandardParser]:
         tagger, parser = _train()
         blob = json.dumps({"digest": digest, "tagger": tagger.to_dict(),
                            "parser": parser.to_dict()})
-        for path in paths:
-            try:
-                os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-                tmp = f"{path}.{os.getpid()}.tmp"  # unique: two
-                # concurrent retrainers must not publish each other's
-                # half-written file
-                with gzip.open(tmp, "wt") as fh:
-                    fh.write(blob)
-                os.replace(tmp, path)
-                break
-            except OSError:
-                continue
-        else:
+        path = _write_path()
+        try:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"  # unique: two concurrent
+            # retrainers must not publish each other's half-written file
+            with gzip.open(tmp, "wt") as fh:
+                fh.write(blob)
+            os.replace(tmp, path)
+        except OSError:
             import warnings
 
             warnings.warn(
-                "SPICE parser models could not be cached (tried: "
-                f"{', '.join(paths)}); every process will retrain (~30 s). "
-                "Point CLIPCAP_SPICE_MODEL_CACHE at a writable path.")
+                f"SPICE parser models could not be cached at {path}; every "
+                "process will retrain (~30 s). Point CLIPCAP_SPICE_MODEL_CACHE "
+                "at a writable path.")
         _models = (tagger, parser)
         return _models
 

@@ -1,9 +1,9 @@
 """Encoder attention: the packed-qkv and head-major kernels, and the façade.
 
 Counterpart of ``clipcap_tpu/ops/attention.py``.  Both kernels are entry
-points of one attention core, ``csrc/sdpa.cu`` (tensor cores for bf16,
-CUDA cores for fp32), and differ only in how they address q, k, v and the
-output:
+points of one attention core, ``csrc/sdpa.cu`` (bf16: a persistent wgmma
+kernel that loads each head's K and V once by TMA; fp32: CUDA cores), and
+differ only in how they address q, k, v and the output:
 
 - :func:`sdpa_packed` reads q/k/v straight from the packed ``[B, N, 3D]``
   in_proj output and returns ``[B, N, D]`` ready for out_proj (any N);
@@ -73,7 +73,9 @@ def sdpa_packed(qkv: Tensor, heads: int, *, scale: Optional[float] = None,
     """Fused attention middle over the packed qkv projection → [B, N, D].
 
     A CPU tensor goes to the twin; a CUDA tensor launches
-    ``csrc/sdpa.cu`` (bf16 or fp32, Dh = 64, any N) or raises."""
+    ``csrc/sdpa.cu`` (bf16 or fp32, Dh = 64, any N: in bf16 a head's K and
+    V stay in shared memory up to N = 704 and stream through a ring past
+    it) or raises."""
     if qkv.device.type == "cpu":
         return sdpa_packed_ref(qkv, heads, scale=scale, causal=causal)
     B, N, threeD = qkv.shape

@@ -198,3 +198,44 @@ def test_a_native_library_that_does_not_run_here_is_removed(tmp_path, monkeypatc
     assert type(tokenization.get_tokenizer()) is tokenization.PTBTokenizer
     monkeypatch.delenv("CXX")
     assert native.build() is True and os.path.exists(native._LIB_PATH)
+
+
+def test_spice_retrain_leaves_the_package_data_dir_untouched(tmp_path, monkeypatch):
+    """A stale packaged cache forces a retrain: the models go to the port's
+    own user cache, and the package's data directory (here a writable copy,
+    patched in) and the JAX package's cache path are never written."""
+    import gzip
+
+    from clipcap_tpu_torch.eval.depparse import ArcStandardParser
+    from clipcap_tpu_torch.eval.postag import PerceptronTagger
+
+    data = tmp_path / "package_data"
+    data.mkdir()
+    with gzip.open(data / "spice_model_cache.json.gz", "wt") as fh:
+        json.dump({"digest": "stale"}, fh)
+    before = {f.name: f.read_bytes() for f in data.iterdir()}
+    home = tmp_path / "home"
+    monkeypatch.setenv("HOME", str(home))
+    monkeypatch.delenv("CLIPCAP_SPICE_MODEL_CACHE", raising=False)
+    monkeypatch.setattr(spice_parser, "_DATA_DIR", str(data))
+    monkeypatch.setattr(spice_parser, "_models", None)
+    monkeypatch.setattr(spice_parser, "_train", lambda: (PerceptronTagger(), ArcStandardParser()))
+    spice_parser.get_models()
+    assert {f.name: f.read_bytes() for f in data.iterdir()} == before
+    written = home / ".cache" / "clipcap_tpu_torch" / "spice_model_cache.json.gz"
+    with gzip.open(written, "rt") as fh:
+        assert json.load(fh)["digest"] == spice_parser._treebank_digest()
+    assert not (home / ".cache" / "clipcap_tpu").exists()
+    # The next process reads the user cache: no second retrain.
+    monkeypatch.setattr(spice_parser, "_models", None)
+    monkeypatch.setattr(spice_parser, "_train", lambda: pytest.fail("retrained twice"))
+    spice_parser.get_models()
+
+
+def test_meteor_names_its_synonym_tier(caplog):
+    from clipcap_tpu_torch.eval.meteor import get_meteor
+
+    with caplog.at_level("INFO", logger="clipcap_tpu_torch.eval.meteor"):
+        get_meteor(synonyms={})
+    lines = [r.getMessage() for r in caplog.records if "synonym stage" in r.getMessage()]
+    assert lines == ["METEOR synonym stage: the caller's synonym table"]

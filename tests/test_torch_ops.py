@@ -97,6 +97,19 @@ def test_sdpa_packed_ref_matches_pallas(form, heads, Dh, causal):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("N", [1, 65, 257])
+@pytest.mark.parametrize("causal", [False, True])
+def test_sdpa_packed_ref_matches_pallas_at_tail_rows(N, causal):
+    """Rows the CUDA kernel splits into a 64-row tile and a tail (65: one
+    row past a tile, 257: ViT-L/14's rows, 1: a lone row), 2 heads of 64
+    (the stripe form), against the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(N)
+    qkv = rng.standard_normal((1, N, 3 * 2 * 64)).astype(np.float32)
+    want = jattn.sdpa_packed(jnp.asarray(qkv), 2, causal=causal)
+    got = attention.sdpa_packed(_t(qkv), 2, causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
 def test_sdpa_unfused_matches_jax():
     rng = np.random.default_rng(3)
     q, k, v = (rng.standard_normal((2, 9, 3, 16)).astype(np.float32) for _ in range(3))

@@ -197,30 +197,62 @@ def test_flash_decode_kernel_matches_twin(cuda, dtype, K, Rm):
         torch.testing.assert_close(got.float(), want.float(), atol=KERNEL_TOL[dtype], rtol=0)
 
 
+def _before_nan(t):
+    """``t`` copied to the start of a larger buffer that holds NaN past its
+    end: a kernel that reads outside its operand turns its output NaN."""
+    buf = torch.full((t.numel() + 4096,), float("nan"), dtype=t.dtype, device=t.device)
+    out = buf[:t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _attention_cases(first, shape):
+    """The shapes of the attention kernel tests: ``first`` (with their
+    original ids), then rows that end a query tile or a 16-key block, or
+    fall one short or one past (N = 1, 63, 64, 65, 257), 1,024 heads (the
+    persistent grid, one block an SM, walks its heads more than once), and
+    operands followed by NaN.  ``shape(B, H, N)`` orders a case's sizes as
+    the test takes them."""
+    cases = [pytest.param(*case, False, id="-".join(map(str, case))) for case in first]
+    cases += [pytest.param(*shape(2, 4, N), causal, False, id=f"tail-{N}-{causal}")
+              for N in (1, 63, 64, 65, 257) for causal in (False, True)]
+    cases += [pytest.param(*shape(64, 16, 65), False, False, id="wrap-64x16-65")]
+    cases += [pytest.param(*shape(3, 4, 65), causal, True, id=f"nan-outside-65-{causal}")
+              for causal in (False, True)]
+    return cases
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,N,H,causal", [(3, 50, 12, False), (2, 77, 8, True),
-                                          (1, 577, 4, False), (1, 577, 4, True)])
-def test_sdpa_packed_kernel_matches_twin(cuda, dtype, B, N, H, causal):
+@pytest.mark.parametrize("B,N,H,causal,nan_outside", _attention_cases(
+    [(3, 50, 12, False), (2, 77, 8, True), (1, 577, 4, False), (1, 577, 4, True)],
+    lambda B, H, N: (B, N, H)))
+def test_sdpa_packed_kernel_matches_twin(cuda, dtype, B, N, H, causal, nan_outside):
     g = torch.Generator(device=cuda).manual_seed(N)
     qkv = torch.randn(B, N, 3 * H * 64, generator=g, device=cuda).to(dtype)
+    if nan_outside:
+        qkv = _before_nan(qkv)
     got = sdpa_packed(qkv, H, causal=causal)
     want = sdpa_packed_ref(qkv, H, causal=causal)
+    assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), atol=KERNEL_TOL[dtype], rtol=0)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,N,causal", [(8, 12, 50, False), (5, 8, 77, True),
-                                          (4, 16, 257, False), (2, 16, 512, False),
-                                          (2, 4, 130, True)])
-def test_fused_sdpa_kernel_matches_twin(cuda, dtype, B, H, N, causal):
+@pytest.mark.parametrize("B,H,N,causal,nan_outside", _attention_cases(
+    [(8, 12, 50, False), (5, 8, 77, True), (4, 16, 257, False), (2, 16, 512, False),
+     (2, 4, 130, True)], lambda B, H, N: (B, H, N)))
+def test_fused_sdpa_kernel_matches_twin(cuda, dtype, B, H, N, causal, nan_outside):
     g = torch.Generator(device=cuda).manual_seed(N)
     q, k, v = (torch.randn(B, H, N, 64, generator=g, device=cuda).to(dtype) for _ in range(3))
+    if nan_outside:
+        q, k, v = map(_before_nan, (q, k, v))
     before = fused_sdpa.launches
     got = fused_sdpa(q, k, v, causal=causal)
     assert fused_sdpa.launches == before + 1
     want = fused_sdpa_ref(q, k, v, causal=causal)
+    assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), atol=KERNEL_TOL[dtype], rtol=0)
     # The façade: [B, N, H, Dh] in, one launch, the context as [B, N, H·Dh].
     qn, kn, vn = (t.transpose(1, 2) for t in (q, k, v))
@@ -228,6 +260,30 @@ def test_fused_sdpa_kernel_matches_twin(cuda, dtype, B, H, N, causal):
     assert fused_sdpa.launches == before + 2
     torch.testing.assert_close(got.float(), want.transpose(1, 2).reshape(B, N, H * 64).float(),
                                atol=KERNEL_TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+def test_sdpa_c_entries_refuse_what_tma_cannot_address(cuda):
+    """The bf16 C entries return cudaErrorInvalidValue (1) for a base off
+    16 bytes, which the copy engine cannot address (the wrappers never pass
+    one), and launch for the same operands aligned."""
+    from clipcap_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    B, N, H, bf16 = 2, 10, 4, _build.DTYPE_CODES[torch.bfloat16]
+    qkv = torch.zeros(B * N * 3 * H * 64 + 8, dtype=torch.bfloat16, device=cuda)
+    out = torch.empty(B * N * H * 64 + 8, dtype=torch.bfloat16, device=cuda)
+    stream = _build.stream_of(qkv)
+    p, o = qkv.data_ptr(), out.data_ptr()
+    assert lib.clipcap_sdpa_packed(p + 2, o, B, N, H, 0, bf16, 0.125, stream) == 1
+    assert lib.clipcap_sdpa_packed(p, o + 8, B, N, H, 0, bf16, 0.125, stream) == 1
+    assert lib.clipcap_sdpa_packed(p, o, B, N, H, 0, bf16, 0.125, stream) == 0
+    for bad in range(4):
+        ptrs = [p, p, p, o]
+        ptrs[bad] += 4
+        assert lib.clipcap_fused_sdpa(*ptrs, B, H, N, 0, bf16, 0.125, stream) == 1
+    assert lib.clipcap_fused_sdpa(p, p, p, o, B, H, N, 0, bf16, 0.125, stream) == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
