@@ -84,7 +84,8 @@ Phases (any failure exits non-zero before the last line):
    ``beam_search_batched`` b96 with ``consolidate_every=8`` (bf16 and int8
    caches) must launch both new kernels.  Information: captions/s and peak
    device memory of (bf16|int8, C=0|8) at b96 bf16, a ``torch.profiler``
-   breakdown of the (int8, C=0) batch, each new kernel against its twin
+   breakdown of an (int8, C=0) batch cut to 8 new tokens, each new kernel
+   against its twin
    and its bound.  Then the decode forms: fp32 R = 4 tokens at C = 0 must
    be equal through the strided cache and the auto kernel, the tile-major
    cache (``tm``), the manual-pipeline kernel (``man``) and both
@@ -121,7 +122,40 @@ Phases (any failure exits non-zero before the last line):
    and scoring seconds, a ``torch.profiler`` breakdown of one generation
    batch's decode, and the manual kernel at that decode's shape (R = 160,
    H = 12, K = 1, one 80-slot tile) beside the auto kernel, the twin and
-   SDPA, with the bound.
+   SDPA, with the bound;
+10. the last CLI stages and int8 serving, each path with its counts set to
+   0 just before and read just after.  (a) After phase 6:
+   ``clipcap_tpu_torch.finetune.start_finetuning`` (argv without
+   ``--train-language-model``) on phase 6's dataset, GPT-2 124M + mapper,
+   bf16, batch 64, 11 steps; gates as phase 6b's, and GPT-2's weights
+   moved; then ``utils.export_checkpoint.export_params`` on its final
+   checkpoint, and the params-only file loads on the card and captions.
+   (c) After phase 8: phase 8's seeded ViT-L/14 quantised w8a8 from its fp32
+   weights; the fp32 float tower within 1e-3 of the port's CPU forward of
+   the same image, and the fp32 w8a8 forward at B = 1, 17 and 64 (the
+   class-token block's ``_int_mm`` on padded rows below 17) in lockstep
+   with the CPU: every ``int8_linear`` call also run on the CPU on the same
+   inputs, within 1e-5 (the whole w8a8 forward against the CPU's is
+   printed: int8 rounding carries summation-order differences to ~1e-2, as
+   phase 7 found for the int8 cache); ``CLIPEncoder(int8=True).similarity``
+   at B = 1 equal to ``clip_similarity(int8_acts=True)`` within 1e-4; the
+   preprocess entry point with ``--int8-encoder true`` on one 256-image
+   partition: exit 0, finite [256, 768] rows, ``patch_embed`` and
+   ``sdpa_packed`` launched.  Information: ViT-L/14 w8a8 b64 embeds/s
+   beside bf16 b64 and phase 8's bf16 b256, the four projections
+   (``int8_linear``, ``_int_mm``, ``quantize_rows``) against the bf16
+   ``linear``, and the cosine of w8a8 against the float tower.  (b) After
+   phase 9: phase 7's seeded GPT-2 XL, its LM quantised from the fp32
+   weights; fp32 beam 5 at R = 4, 67 new tokens, tokens through the kernels
+   equal to those through the twins, ``flash_decode`` launched; one
+   prefill's logits within 1e-3 (max|d| over max|ref|) of the same int8
+   model's on the CPU; ``--int8-weights`` through the inference CLI's
+   function and eval's generation on the phase-3 checkpoint, both
+   launching ``flash_decode``.  Information: captions/s and peak device
+   memory at b96 bf16, C = 0, bf16 and int8 caches, beside phase 7's bf16
+   weights, a ``torch.profiler`` breakdown of one int8-cache batch cut to
+   8 new tokens, as phase 7's, and the time of the eager int8 → bf16
+   widening of one forward's block weights.
 
 Every kernel's row carries its bound (bytes over 3.35 TB/s or operations
 over the data sheet's peak, whichever is larger) and the time of one
@@ -1184,13 +1218,17 @@ class _Tee(io.TextIOBase):
         return len(text)
 
 
-def train_cli(dev, root: Path, out: Path, label: str, extra, embedding, model_args=MODEL_ARGS):
-    """Phase 6b: one run of ``clipcap_tpu_torch.train``'s entry point on
-    the card, then its final checkpoint through ``load`` and
-    ``generate_beam``.  Returns the fused-AdamW launches of the run."""
+def train_cli(dev, root: Path, out: Path, label: str, extra, embedding, model_args=MODEL_ARGS,
+              start=None):
+    """Phase 6b: one run of ``clipcap_tpu_torch.train``'s entry point (or
+    ``start``, another entry point that takes the same argv) on the card,
+    then its final checkpoint through ``load`` and ``generate_beam``.
+    Returns the fused-AdamW launches of the run."""
     from clipcap_tpu_torch import generate_beam, load
     from clipcap_tpu_torch.ops.fused_adamw import fused_adamw
     from clipcap_tpu_torch.train.train import start_training
+
+    start = start or start_training
 
     device = "cpu" if torch.device(dev).type == "cpu" else str(torch.device(dev).index or 0)
     argv = ["--device", device, "--input-dataset", str(root), "--output-folder", str(out),
@@ -1202,7 +1240,7 @@ def train_cli(dev, root: Path, out: Path, label: str, extra, embedding, model_ar
     t0 = time.perf_counter()
     with warnings.catch_warnings(), contextlib.redirect_stdout(_Tee(sys.stdout, log)):
         warnings.simplefilter("ignore")               # seeded GPT-2: no weights offline
-        rc = start_training(argv)
+        rc = start(argv)
     sync(dev)
     launches = fused_adamw.launches
     seconds = time.perf_counter() - t0
@@ -1512,9 +1550,10 @@ def xl_gates(model, dev):
           f"(information): {agreement(bf_c0, run(False, 0, x=moved))}")
 
 
-def int8_cli(slice_dir: Path, dev):
+def int8_cli(slice_dir: Path, dev, flag: str = "--int8-kv-cache"):
     """Phase 7c: ``python -m clipcap_tpu_torch.inference --int8-kv-cache``'s
-    function on the GPT-2 124M checkpoint of phase 3."""
+    function on the GPT-2 124M checkpoint of phase 3 (phase 10b:
+    ``--int8-weights``)."""
     from argparse import ArgumentParser
 
     from clipcap_tpu_torch.inference.args import add_inference_args
@@ -1523,15 +1562,15 @@ def int8_cli(slice_dir: Path, dev):
     args = add_inference_args(ArgumentParser()).parse_args(
         ["--model-path", str(slice_dir / "model.npz"), "--config-path",
          str(slice_dir / "config.yaml"), "--sample-path", str(slice_dir / "image.png"),
-         "--device", str(dev), "--int8-kv-cache", "--number-to-generate", "5"])
+         "--device", str(dev), flag, "--number-to-generate", "5"])
     log = io.StringIO()
     with warnings.catch_warnings(), contextlib.redirect_stdout(log):
         warnings.simplefilter("ignore")               # seeded CLIP: no checkpoint offline
         rc = inference_demo(args)
     lines = log.getvalue().splitlines()
     if rc != 0 or sum(line.startswith("sim ") for line in lines) != 5 or "best" not in lines[-1]:
-        raise AssertionError(f"int8 CLI: exit {rc}, output {lines}")
-    print(f"xl: CLI --int8-kv-cache on the GPT-2 124M checkpoint: 5 captions; {lines[-1]!r}")
+        raise AssertionError(f"int8 CLI {flag}: exit {rc}, output {lines}")
+    print(f"xl: CLI {flag} on the GPT-2 124M checkpoint: 5 captions; {lines[-1]!r}")
 
 
 def run_xl(dev, slice_dir: Path, tag: str):
@@ -1585,7 +1624,7 @@ def run_xl(dev, slice_dir: Path, tag: str):
     # Timings (information): b96 beam 5, bf16, two distinct batches a trial.
     inputs = [prefix] + [model.transformer_mapper(
         torch.randn(XL_BATCH, 768, generator=g, device=dev), dtype=bf)]
-    medians = {}
+    medians, peaks = {}, {}
     for int8, C in ((False, 0), (True, 0), (False, 8), (True, 8)):
         bp = BeamParams(beam_size=K, max_new_tokens=N_NEW, stop_token=50256, int8_kv=int8,
                         consolidate_every=C)
@@ -1596,13 +1635,12 @@ def run_xl(dev, slice_dir: Path, tag: str):
         torch.cuda.reset_peak_memory_stats()
         cps = rate(work, inputs, XL_BATCH, trials=2)
         medians[int8, C] = statistics.median(cps)
+        peaks[int8, C] = torch.cuda.max_memory_allocated() / 2**30
         print(f"time [{tag}] beam-5 GPT-2 XL b{XL_BATCH} bf16 int8_kv={int8} "
               f"consolidate_every={C}: captions/s per trial {cps}; median "
-              f"{medians[int8, C]:.2f}; peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+              f"{medians[int8, C]:.2f}; peak device memory {peaks[int8, C]:.2f} GiB")
         if (int8, C) == (True, 0):
-            profile(work, inputs[0], XL_BATCH * 1e3 / medians[int8, C],
-                    f"beam-5 GPT-2 XL b{XL_BATCH} int8 C=0", tag)
+            profile_xl_steps(lm, inputs[0], f"beam-5 GPT-2 XL b{XL_BATCH} int8 C=0", tag)
     form_launches = xl_forms(lm, prefix, tag)
     times = time_kv_kernels(dev, tag)
     times.update(time_manual_kernels(dev, tag))
@@ -1613,7 +1651,28 @@ def run_xl(dev, slice_dir: Path, tag: str):
     rows["flash_decode_manual"] = dict(times["flash_decode_manual"],
                                        xl_b96_launches={f: form_launches[f]
                                                         for f in ("man", "mantm")})
-    return rows
+    return rows, {key: (medians[key], peaks[key]) for key in ((False, 0), (True, 0))}
+
+
+def profile_xl_steps(lm, prefix, label: str, tag: str):
+    """One beam-5 batch with the int8 cache at C = 0, cut to 8 new tokens,
+    under the profiler (phase 7, and 10b with int8 weights): the trace of a
+    whole 67-token batch takes over a minute to read back, and 8 tokens show
+    the same steps.  The idle share is against the same cut batch
+    unprofiled."""
+    from clipcap_tpu_torch.inference.beam import BeamParams, beam_search_batched
+
+    bp = BeamParams(beam_size=K, max_new_tokens=8, stop_token=50256, int8_kv=True)
+
+    def work(x):
+        return beam_search_batched(lm, x, bp, dtype=torch.bfloat16)
+
+    work(prefix)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    work(prefix)
+    torch.cuda.synchronize()
+    profile(work, prefix, (time.perf_counter() - t0) * 1e3, f"{label}, 8 new tokens", tag)
 
 
 def xl_forms(lm, prefix, tag: str):
@@ -1899,10 +1958,12 @@ def run_preprocess(dev, workdir: Path, tag: str):
               f"embeds/s per trial {per_trial}; median {statistics.median(per_trial):.1f}")
     med = statistics.median(rates["kernel"])
     profile(embed, inputs[0], PRE_BATCH * 1e3 / med, f"ViT-L/14 b{PRE_BATCH}", tag)
+    clip = encoder.model                              # fp32, for phase 10c
     del visual, inputs, built, encoder
     times = time_patch_embed(dev, tag)
     print(f"preprocess: phase took {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches["patch_embed"], **times}, launches["sdpa_packed"]
+    return ({"launches": launches["patch_embed"], **times}, launches["sdpa_packed"], rates,
+            clip, file_captions)
 
 
 EVAL_IMAGES, EVAL_BATCH, EVAL_METRICS = 64, 32, ("Bleu_1", "Bleu_4", "METEOR", "ROUGE_L",
@@ -2084,8 +2145,341 @@ def time_manual_eval_shape(dev, R: int, tag: str):
     return t
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: finetune + export, int8 weights (w8a16 GPT-2, w8a8 ViT)
+# ---------------------------------------------------------------------------
+
+
+def _leaves(tree, prefix=""):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, f"{prefix}{key}/")
+        else:
+            yield f"{prefix}{key}", np.asarray(value)
+
+
+def run_finetune_export(dev, root: Path, workdir: Path, embedding):
+    """Phase 10a: ``clipcap_tpu_torch.finetune.start_finetuning`` (argv as
+    the CLI gets it, without ``--train-language-model``) on phase 6's
+    dataset, then ``utils.export_checkpoint.export_params`` on its final
+    checkpoint.  Gates (beside ``train_cli``'s: finite losses, launches,
+    files, the checkpoint captions): GPT-2's weights moved from the ones
+    training started from, and the params-only file loads on the card and
+    captions an embedding.  Returns the fused-AdamW launches of the run."""
+    from clipcap_tpu_torch import generate_beam, load
+    from clipcap_tpu_torch.convert import gpt2_params
+    from clipcap_tpu_torch.finetune import start_finetuning
+    from clipcap_tpu_torch.models.hf_import import load_gpt2
+    from clipcap_tpu_torch.train.checkpoint import restore_params
+    from clipcap_tpu_torch.utils.export_checkpoint import export_params
+
+    t0 = time.perf_counter()
+    out, exported = workdir / "finetune", workdir / "finetune_export.npz"
+    launches = train_cli(dev, root, out, "10a finetune", [], embedding, start=start_finetuning)
+    export_params(str(out / "clipcap_final.npz"), str(exported))
+    keys = list(np.load(exported).keys())
+    if not keys or any(k == "step" or k.startswith(("params::", "opt_state::")) for k in keys):
+        raise AssertionError(f"finetune: the export kept train-state keys {keys[:5]}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")               # seeded GPT-2: no weights offline
+        start = dict(_leaves(gpt2_params(load_gpt2("gpt2"))))
+    tuned = dict(_leaves(restore_params(str(exported))["lm"]))
+    moved = {k: float(np.abs(tuned[k] - start[k]).max()) for k in start}
+    if tuned.keys() != start.keys() or not max(moved.values()) > 0:
+        raise AssertionError(f"finetune: GPT-2 did not train ({moved})")
+    model, tokenizer = load(str(exported), str(out / "clipcap_config.yaml"), device=dev)
+    prefix = model.transformer_mapper(embedding[None])
+    caption = generate_beam(model, tokenizer, prefix, number_to_generate=1, beam_size=K)
+    if len(caption) != 1 or not isinstance(caption[0], str) or not torch.isfinite(prefix).all():
+        raise AssertionError("finetune: the exported checkpoint did not caption")
+    print(f"finetune: {len(keys)} params-only arrays exported; GPT-2 moved in "
+          f"{sum(v > 0 for v in moved.values())} of {len(moved)} tensors (max|d| "
+          f"{max(moved.values()):.3g}); the export loaded on {dev} and captioned "
+          f"{caption[0]!r}; {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def int8_weight_gates(dev, slice_dir: Path, eval_dir: Path):
+    """Phase 10b, gates: a seeded GPT-2 XL + mapper (phase 7's weights) in
+    fp32, its LM quantised from the fp32 weights.  Beam 5, R = 4, 67 new
+    tokens: the tokens through the kernels equal those through the twins
+    (decode attention patched to the twin, here only), and the kernel run
+    launches ``flash_decode``; one prefill's logits on the card within 1e-3
+    (max|d| over max|ref|) of the same quantised model's on the CPU.  Then
+    ``--int8-weights`` through the inference CLI's function and through
+    eval's generation, each on phase 3's GPT-2 124M checkpoint with the
+    counts set to 0 just before.  Returns the int8 model (floats in bf16)
+    and phase 7's first b96 bf16 prefix, for the timings, and the
+    launches."""
+    from clipcap_tpu_torch.eval import base
+    from clipcap_tpu_torch.inference.beam import BeamParams, beam_search_batched
+    from clipcap_tpu_torch.models import gpt2
+    from clipcap_tpu_torch.ops.attention import sdpa_packed
+    from clipcap_tpu_torch.ops.flash_decode import flash_decode, flash_decode_ref
+    from clipcap_tpu_torch.ops.quant import quantize_gpt2_int8
+
+    t0 = time.perf_counter()
+    model = seeded_xl(dev)
+    qlm = quantize_gpt2_int8(model.language_model)
+    g = torch.Generator(device=dev).manual_seed(6)
+    prefix = model.transformer_mapper(torch.randn(4, 768, generator=g, device=dev))
+    bp = BeamParams(beam_size=K, max_new_tokens=N_NEW, stop_token=50256)
+    n0 = flash_decode.launches
+    kern = beam_search_batched(qlm, prefix, bp, dtype=torch.float32)
+    launches = {"xl_fp32_r4": flash_decode.launches - n0}
+    with mock.patch.object(gpt2, "flash_decode", flash_decode_ref):
+        twin = beam_search_batched(qlm, prefix, bp, dtype=torch.float32)
+    if launches["xl_fp32_r4"] == 0 or flash_decode.launches != n0 + launches["xl_fp32_r4"]:
+        raise AssertionError(f"int8 weights: kernel run {launches}, the twin run launched")
+    print(f"int8 weights: fp32 XL R=4 beam 5, int8-weight tokens kernels "
+          f"({launches['xl_fp32_r4']} launches) vs twins: {agreement(kern, twin)}")
+    if not torch.equal(kern.tokens, twin.tokens):
+        raise AssertionError("int8 weights: fp32 tokens differ between kernels and twins")
+    logits, _ = gpt2.gpt2_apply(qlm, inputs_embeds=prefix[:1])
+    plain, _ = gpt2.gpt2_apply(model.language_model, inputs_embeds=prefix[:1])
+    cpu_lm = copy.deepcopy(qlm).cpu()
+    want, _ = gpt2.gpt2_apply(cpu_lm, inputs_embeds=prefix[:1].cpu())
+    rel = ((logits.cpu() - want).abs().max() / want.abs().max()).item()
+    moved = ((logits - plain).abs().max() / plain.abs().max()).item()
+    print(f"int8 weights: XL prefill logits [1, {P}, 50257] card vs CPU, same int8 model: "
+          f"max|d|/max|ref| {rel:.3g} (gate 1e-3); int8 vs fp32 weights (information) "
+          f"{moved:.3g}")
+    if not rel <= 1e-3:
+        raise AssertionError(f"int8 weights: card and CPU logits differ by {rel}")
+    g = torch.Generator(device=dev).manual_seed(5)     # phase 7's first b96 prefix
+    x = model.transformer_mapper.to(torch.bfloat16)(
+        torch.randn(XL_BATCH, 768, generator=g, device=dev), dtype=torch.bfloat16)
+    del cpu_lm, want, logits, plain, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    flash_decode.launches = 0
+    int8_cli(slice_dir, dev, "--int8-weights")
+    launches["cli"] = flash_decode.launches
+    argv = ["--model-path", str(slice_dir / "model.npz"), "--config-path",
+            str(slice_dir / "config.yaml"), "--sample-path", str(eval_dir / "images"),
+            "--reference-csv", str(eval_dir / "refs.csv"), "--eval-batch-size",
+            str(EVAL_BATCH), "--number-to-generate", "5", "--allow-fallback-tokenizer",
+            "--device", str(dev), "--fp-precision", "16", "--int8-weights"]
+    flash_decode.launches = sdpa_packed.launches = 0
+    with warnings.catch_warnings(), contextlib.redirect_stdout(io.StringIO()):
+        warnings.simplefilter("ignore")
+        preds = base.generate_predictions(base.build_parser().parse_args(argv))
+    sync(dev)
+    launches.update(eval=flash_decode.launches, eval_sdpa_packed=sdpa_packed.launches)
+    print(f"int8 weights: eval generation --int8-weights on {len(preds)} images; launches "
+          f"{launches}; {time.perf_counter() - t0:.1f} s for the gates")
+    if len(preds) != EVAL_IMAGES or not all(isinstance(v, str) for v in preds.values()):
+        raise AssertionError(f"int8 weights: eval gave {len(preds)} predictions")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"int8 weights: launches {launches}")
+    return qlm.to(torch.bfloat16), x, launches
+
+
+def int8_weight_timings(qlm, x, dev, bf16_weights, tag: str):
+    """Phase 10b, information: beam 5 at b96 bf16, C = 0, bf16 and int8 KV
+    cache, with int8 weights beside phase 7's bf16 weights (same run):
+    captions/s and peak device memory, a ``torch.profiler`` breakdown of
+    one int8-cache batch cut to 8 new tokens (phase 7 profiles the same
+    with bf16 weights), and the eager widening of one forward's 192 int8
+    weights to bf16 (CUDA events), the copy ``linear`` writes at each
+    projection."""
+    from clipcap_tpu_torch.inference.beam import BeamParams, beam_search_batched
+
+    t_start = time.perf_counter()
+    for int8_kv in (False, True):
+        bp = BeamParams(beam_size=K, max_new_tokens=N_NEW, stop_token=50256, int8_kv=int8_kv)
+
+        def work(prefix, bp=bp):
+            return beam_search_batched(qlm, prefix, bp, dtype=torch.bfloat16)
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cps = rate(work, [x], XL_BATCH, trials=2)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        base_cps, base_peak = bf16_weights[int8_kv, 0]
+        print(f"time [{tag}] beam-5 GPT-2 XL b{XL_BATCH} bf16, int8 weights, int8_kv={int8_kv} "
+              f"C=0: captions/s per trial {cps}; median {statistics.median(cps):.2f} (bf16 "
+              f"weights, phase 7: {base_cps:.2f}); peak device memory {peak:.2f} GiB (bf16 "
+              f"weights: {base_peak:.2f})")
+        if int8_kv:
+            profile_xl_steps(qlm, x, f"beam-5 GPT-2 XL b{XL_BATCH} int8 weights, int8 C=0", tag)
+    weights = [w for layer in qlm.h for w in (layer.attn.c_attn.weight, layer.attn.c_proj.weight,
+                                               layer.mlp.c_fc.weight, layer.mlp.c_proj.weight)]
+    widen_ms = cuda_ms(lambda: [w.in_out().to(torch.bfloat16) for w in weights], iters=5)
+    n = sum(w.q.numel() for w in weights)
+    print(f"time [{tag}] eager int8 -> bf16 widening of the {len(weights)} XL block weights "
+          f"({n / 1e9:.3f} G parameters, {3 * n / 1e9:.2f} GB moved): {widen_ms:.3f} ms per "
+          f"forward, x{N_NEW + 1} forwards = {widen_ms * (N_NEW + 1):.1f} ms a batch "
+          f"({3 * n / widen_ms / 1e6:.0f} GB/s)")
+    print(f"int8 weights: timings took {time.perf_counter() - t_start:.1f} s")
+
+
+def run_w8a8(dev, clip, raw: Path, workdir: Path, file_captions, bf16_rates, tag: str):
+    """Phase 10c: the w8a8 ViT-L/14 (phase 8's seeded weights), quantised
+    from the fp32 weights.  Gates: the fp32 float tower on the card within
+    1e-3 (‖d‖ / ‖ref‖) of the port's CPU forward of the same image; the
+    fp32 w8a8 forward on the card at B = 1, 17 and 64 in lockstep with the
+    CPU, each ``int8_linear`` call also run on the CPU on the same inputs
+    (the first image's rows) within 1e-5 of max|ref|.  As with phase 7's
+    int8 cache, the whole w8a8 forward cannot be the gate: rounding to int8
+    is not continuous, a summation-order difference of ~1e-7 flips the odd
+    quantised value, and 24 layers of seeded weights carry that to ~1e-2
+    (printed beside the card's own B = 1 against B = 17).  The int8
+    ``CLIPEncoder.similarity`` runs on the card at B = 1 and equals
+    ``clip_similarity(int8_acts=True)`` on the quantised model; the
+    preprocess entry point with ``--int8-encoder true`` on one 256-image
+    partition (counts set to 0 just before) exits 0, writes finite
+    [256, 768] rows and launches ``patch_embed`` and ``sdpa_packed``.
+    Information: ViT-L/14 w8a8 b64 embeds/s (bench.py's shape) beside bf16
+    b64 and phase 8's bf16 b256, the four projections' ms against the bf16
+    ``linear``, the cosine of w8a8 against the float tower at fp32.
+    Returns the launches."""
+    from clipcap_tpu_torch.encoders.clip import CLIPEncoder
+    from clipcap_tpu_torch.models import clip_vit
+    from clipcap_tpu_torch.models.clip_vit import clip_encode_image, clip_similarity
+    from clipcap_tpu_torch.ops.attention import sdpa_packed
+    from clipcap_tpu_torch.ops.layers import Int8Weight, linear
+    from clipcap_tpu_torch.ops.patch_embed import patch_embed
+    from clipcap_tpu_torch.ops.quant import int8_linear, quantize_clip_visual_int8, quantize_rows
+    from clipcap_tpu_torch.utils.clip_tokenizer import tokenize
+
+    t0 = time.perf_counter()
+    qclip = quantize_clip_visual_int8(clip)
+    side = clip.config.vision.image_size
+    g = torch.Generator(device=dev).manual_seed(10)
+    images = torch.randint(0, 256, (64, side, side, 3), generator=g, device=dev,
+                           dtype=torch.uint8)
+
+    def rel(a, b):
+        return ((a.cpu() - b.cpu()).norm() / b.cpu().norm()).item()
+
+    def lockstep(diffs):
+        """``int8_linear`` on the card, and on the CPU for the first image's
+        rows of the same inputs (the product is row by row)."""
+        def call(x, w, b=None):
+            got = int8_linear(x, w, b)
+            want = int8_linear(x[:1].cpu(), Int8Weight(w.q.cpu(), w.s.cpu(), w.out_in),
+                               None if b is None else b.cpu())
+            diffs.append(((got[:1].cpu() - want).abs().max() / want.abs().max()).item())
+            return got
+        return call
+
+    with torch.no_grad():
+        cpu_visual = copy.deepcopy(qclip.visual).cpu()
+        want = clip_encode_image(cpu_visual, images[:1].cpu(), int8_acts=True)[0]
+        cpu_visual = copy.deepcopy(clip.visual).cpu()
+        plain_cpu = clip_encode_image(cpu_visual, images[:1].cpu())[0]
+        del cpu_visual
+        plain = clip_encode_image(clip.visual, images, dtype=torch.float32)
+        float_rel = rel(plain[0], plain_cpu)
+        print(f"w8a8: ViT-L/14 fp32 float tower on the card vs the CPU, first image: "
+              f"|d|/|ref| {float_rel:.3g} (gate 1e-3)")
+        if not float_rel <= 1e-3:
+            raise AssertionError(f"w8a8: the float tower differs from the CPU's by {float_rel}")
+        firsts, lock = {}, {}
+        for B in (1, 17, 64):
+            diffs = []
+            with mock.patch.object(clip_vit, "int8_linear", lockstep(diffs)):
+                got = clip_encode_image(qclip.visual, images[:B], int8_acts=True)
+            if got.shape != (B, PRE_DIM) or not torch.isfinite(got).all():
+                raise AssertionError(f"w8a8: B={B} gave {tuple(got.shape)}")
+            firsts[B], lock[B] = got[0], (len(diffs), max(diffs))
+        print(f"w8a8: ViT-L/14 fp32 w8a8 forward on the card at B = 1, 17, 64 in lockstep with "
+              f"the CPU: (int8_linear calls, max|d|/max|ref| of a call) {lock} (gate 1e-5)")
+        if not max(d for _, d in lock.values()) <= 1e-5:
+            raise AssertionError(f"w8a8: int8_linear on the card and the CPU differ: {lock}")
+        print(f"w8a8 (information): first image, whole forward, |d|/|ref| card vs CPU by batch "
+              f"{ {B: round(rel(x, want), 5) for B, x in firsts.items()} }; card B=1 vs B=17 "
+              f"{rel(firsts[1], firsts[17]):.3g} (int8 rounding is not continuous: "
+              f"summation-order differences flip quantised values and 24 layers amplify them)")
+        cos = torch.nn.functional.cosine_similarity(got, plain)
+        print(f"w8a8: cosine of the w8a8 tower against the float tower, fp32, b64 "
+              f"(information): min {cos.min().item():.6f}, mean {cos.mean().item():.6f}")
+
+        encoder = CLIPEncoder(clip, clip.config, int8=True)
+        captions = ["a dog on a bench", "a red car by the sea", "two cats asleep"]
+        sims = encoder.similarity(images[0].cpu().numpy(), captions)
+        ref, _ = clip_similarity(qclip, images[:1], torch.as_tensor(tokenize(captions),
+                                                                    device=dev), int8_acts=True)
+        d = np.abs(sims - ref[0].cpu().numpy()).max()
+        print(f"w8a8: CLIPEncoder(int8=True).similarity at B=1 on the card: "
+              f"{np.round(sims, 4).tolist()}; vs clip_similarity(int8_acts=True) max|d| "
+              f"{d:.3g} (tol 1e-4)")
+        if sims.shape != (3,) or not np.isfinite(sims).all() or not d <= 1e-4:
+            raise AssertionError(f"w8a8: similarity {sims} against {ref}")
+        del encoder, ref
+
+    # The preprocess entry point with --int8-encoder on one partition.
+    part = raw / "int8"
+    part.mkdir()
+    keys = [f"img_{i:05d}" for i in range(PRE_BATCH)]
+    for key in keys:
+        for ext in (".jpg", ".txt"):
+            shutil.copy(raw / "files" / f"{key}{ext}", part / f"{key}{ext}")
+    built = []
+    patch_embed.launches = sdpa_packed.launches = 0
+    preprocess_cli(dev, "int8 encoder", ["--input-dataset", str(part), "--output-folder",
+                                         str(workdir / "out_int8"), "--int8-encoder", "true"],
+                   built, PRE_BATCH)
+    launches = {"patch_embed": patch_embed.launches, "sdpa_packed": sdpa_packed.launches}
+    print(f"w8a8: preprocess --int8-encoder true, one batch of {PRE_BATCH}; launches {launches}")
+    blocks = clip.config.vision.layers - 1
+    if launches["patch_embed"] < 1 or launches["sdpa_packed"] < blocks or not built[0][0].int8:
+        raise AssertionError(f"w8a8 preprocess: launches {launches}")
+    check_dataset(workdir / "out_int8", [file_captions[:PRE_BATCH]], "int8 encoder")
+    del built
+
+    # Information: embeds/s, the projections, on the same run.
+    bf16_visual = copy.deepcopy(clip.visual).to(torch.bfloat16)
+    inputs = [torch.randint(0, 256, (64, side, side, 3), generator=g, device=dev,
+                            dtype=torch.uint8) for _ in range(3)]
+    for label, visual, int8_acts in (("w8a8", qclip.visual, True),
+                                     ("bf16", bf16_visual, False)):
+        @torch.no_grad()
+        def embed(x, visual=visual, int8_acts=int8_acts):
+            return clip_encode_image(visual, x, dtype=torch.bfloat16, int8_acts=int8_acts)
+
+        per_trial = rate(embed, inputs, 64)
+        print(f"time [{tag}] ViT-L/14 b64 bf16 uint8 {label}: embeds/s per trial {per_trial}; "
+              f"median {statistics.median(per_trial):.1f} (bf16 b{PRE_BATCH}, phase 8: median "
+              f"{statistics.median(bf16_rates):.1f})")
+        if label == "w8a8":
+            profile(embed, inputs[0], 64e3 / statistics.median(per_trial),
+                    "ViT-L/14 b64 w8a8", tag)
+    block = qclip.visual.transformer.resblocks[0]
+    fblock = bf16_visual.transformer.resblocks[0]
+    M = 64 * (clip.config.vision.n_patches + 1)
+    for name, w, b, fw, fb in (
+            ("in_proj", block.attn.in_proj_weight, block.attn.in_proj_bias,
+             fblock.attn.in_proj_weight, fblock.attn.in_proj_bias),
+            ("out_proj", block.attn.out_proj.weight, block.attn.out_proj.bias,
+             fblock.attn.out_proj.weight, fblock.attn.out_proj.bias),
+            ("c_fc", block.mlp.c_fc.weight, block.mlp.c_fc.bias,
+             fblock.mlp.c_fc.weight, fblock.mlp.c_fc.bias),
+            ("c_proj", block.mlp.c_proj.weight, block.mlp.c_proj.bias,
+             fblock.mlp.c_proj.weight, fblock.mlp.c_proj.bias)):
+        x = torch.randn(M, w.q.shape[1], generator=g, device=dev).to(torch.bfloat16)
+        q, _ = quantize_rows(x)
+        ms = {"int8_linear": cuda_ms(lambda: int8_linear(x, w, b)),
+              "_int_mm": cuda_ms(lambda: torch._int_mm(q, w.in_out())),
+              "quantize_rows": cuda_ms(lambda: quantize_rows(x)),
+              "bf16 linear": cuda_ms(lambda: linear(x, fw.t(), fb))}
+        N, Kd = w.q.shape
+        print(f"time [{tag}] w8a8 projection {name} M={M} K={Kd} N={N}: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+              + f"; _int_mm {2 * M * Kd * N / ms['_int_mm'] / 1e9:.1f} TOP/s, bf16 linear "
+              f"{2 * M * Kd * N / ms['bf16 linear'] / 1e9:.1f} TFLOP/s")
+    del bf16_visual, inputs, qclip
+    print(f"w8a8: phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict) -> list:
-    """Phases 3-9 in ``workdir``; returns the kernels' rows."""
+    """Phases 3-10 in ``workdir``; returns the kernels' rows.  Phase 10's
+    paths run beside the phases whose models and data they reuse: 10a
+    after 6, 10c after 8, 10b after 9."""
     slice_dir, train_dir = workdir / "slice", workdir / "train"
     slice_dir.mkdir()
     train_dir.mkdir()
@@ -2112,16 +2506,24 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
     del beam, beam_inputs, vit, vit_inputs, model, encoder
     print(host_memory())
     adamw_row = run_training(dev, train_dir, name_limit)
+    embedding = torch.from_numpy(
+        np.load(train_dir / "dataset" / "embeddings" / "embeds_0.npy")[0]).to(dev)
+    adamw_row["finetune_launches"] = run_finetune_export(dev, train_dir / "dataset", train_dir,
+                                                         embedding)
     shutil.rmtree(train_dir)          # its checkpoints: no later phase reads them
     torch.cuda.empty_cache()
     print(host_memory())
-    xl_rows = run_xl(dev, slice_dir, name_limit)
+    xl_rows, bf16_weights = run_xl(dev, slice_dir, name_limit)
     gc.collect()
     torch.cuda.empty_cache()
     print(host_memory())
     pre_dir = workdir / "preprocess"
     pre_dir.mkdir()
-    patch_row, pre_sdpa_launches = run_preprocess(dev, pre_dir, name_limit)
+    patch_row, pre_sdpa_launches, l14_rates, clip, file_captions = run_preprocess(
+        dev, pre_dir, name_limit)
+    w8a8_launches = run_w8a8(dev, clip, pre_dir / "raw", pre_dir, file_captions,
+                             l14_rates["kernel"], name_limit)
+    del clip
     shutil.rmtree(pre_dir)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2129,6 +2531,12 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
     eval_dir = workdir / "eval"
     eval_dir.mkdir()
     manual_launches, eval_row = run_eval_phase(dev, slice_dir, eval_dir, name_limit)
+    print(host_memory())
+    gc.collect()
+    torch.cuda.empty_cache()
+    qlm, xl_prefix, int8w_launches = int8_weight_gates(dev, slice_dir, eval_dir)
+    int8_weight_timings(qlm, xl_prefix, dev, bf16_weights, name_limit)
+    del qlm, xl_prefix
     print(host_memory())
 
     def row(name, source, replaces, **numbers):
@@ -2138,19 +2546,23 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
     return [
         row("flash_decode", "flash_decode.cu", "clipcap_tpu/ops/flash_decode.py:407",
             launches=launches["flash_decode"], max_abs_err=errors["flash_decode"],
-            **times["flash_decode"]),
+            **times["flash_decode"],
+            int8_weights_launches={k: int8w_launches[k] for k in ("xl_fp32_r4", "cli", "eval")}),
         row("sdpa_packed", "sdpa.cu", "clipcap_tpu/ops/attention.py:244",
             launches=launches["sdpa_packed"], max_abs_err=errors["sdpa_packed"],
             **times["sdpa_packed"], text_b5=times["sdpa_packed_text_b5"],
             vit_l14_b256={"launches": pre_sdpa_launches, **times["sdpa_packed_vit_l14"]},
-            vit_l14_336_b256=times["sdpa_packed_vit_l14_336"]),
+            vit_l14_336_b256=times["sdpa_packed_vit_l14_336"],
+            w8a8_preprocess_launches=w8a8_launches["sdpa_packed"],
+            int8_weights_eval_launches=int8w_launches["eval_sdpa_packed"]),
         adamw_row,
         row("flash_decode_int8", "flash_decode.cu", "clipcap_tpu/ops/flash_decode.py:407",
             max_abs_err=errors["flash_decode_int8"], **xl_rows["flash_decode_int8"]),
         row("flash_decode_two_phase", "flash_decode.cu", "clipcap_tpu/ops/flash_decode.py:784",
             max_abs_err=errors["flash_decode_two_phase"], **xl_rows["flash_decode_two_phase"]),
         row("patch_embed", "patch_embed.cu", "clipcap_tpu/ops/patch_embed.py:112",
-            max_abs_err=errors["patch_embed"], **patch_row),
+            max_abs_err=errors["patch_embed"], **patch_row,
+            w8a8_preprocess_launches=w8a8_launches["patch_embed"]),
         row("fused_sdpa", "sdpa.cu", "clipcap_tpu/ops/attention.py:75",
             launches=fused_launches, max_abs_err=max(errors["fused_sdpa"], facade_err),
             **times["fused_sdpa"], vit_b32_b512=times["fused_sdpa_vit_b32"]),

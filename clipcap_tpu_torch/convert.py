@@ -13,6 +13,12 @@ a 2-D weight, ``"conv"`` turns the ``[3·p·p, D]`` patch matrix into the
 The seeded ``init_*`` functions of the port return the same trees (numpy)
 as the JAX package's, so ``*_from_params(init_*(cfg, seed))`` gives both
 packages the same weights.
+
+A weight leaf may also be the JAX package's int8 form ``{"q", "s"}``
+(``ops/quant.py``): it maps to an ``Int8Weight`` in place of the module's
+weight, under the keys ``<weight>.q`` (int8, the module's layout) and
+``<weight>.s`` (fp32), so a tree quantised by either package loads into the
+port's quantised modules and reads back out of them.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from torch import nn
 from clipcap_tpu_torch.models.clip_vit import CLIP, CLIPConfig
 from clipcap_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from clipcap_tpu_torch.models.mapper import MapperConfig, TransformerMapper
+from clipcap_tpu_torch.ops.layers import Int8Weight
 
 Rule = Tuple[str, str, Optional[str]]
 
@@ -130,40 +137,72 @@ def _set(tree: dict, path: str, value) -> None:
 Parts = List[Tuple[List[Rule], int]]  # (rules, layer count) per tower
 
 
+def _is_int8(leaf) -> bool:
+    return isinstance(leaf, dict) and set(leaf) == {"q", "s"}
+
+
+def _leaves(params: dict, layers: int, key: str, path: str, layout: Optional[str]):
+    """The state-dict entries of one rule: ``(key, numpy array)`` pairs in
+    the module's layout, one per layer for a stacked key."""
+    leaf = _get(params, path)
+    if _is_int8(leaf):
+        fields = [(f"{key}.q", np.asarray(leaf["q"], np.int8), layout),
+                  (f"{key}.s", np.asarray(leaf["s"], np.float32), None)]
+    else:
+        fields = [(key, np.asarray(leaf, np.float32), layout)]
+    for k, arr, lay in fields:
+        for name, a in ([(k.format(i=i), arr[i]) for i in range(layers)]
+                        if "{i}" in k else [(k, arr)]):
+            yield name, np.array(_to_module(a, lay), order="C")
+
+
 def state_dict_from_tree(params: dict, parts: Parts) -> Dict[str, torch.Tensor]:
     """A parameter tree (numpy or array-likes, the JAX layout) as a state
-    dict of fp32 CPU tensors in the modules' layout."""
-    sd: Dict[str, torch.Tensor] = {}
-    for rules, layers in parts:
-        for key, path, layout in rules:
-            arr = np.asarray(_get(params, path), dtype=np.float32)
-            for k, a in ([(key.format(i=i), arr[i]) for i in range(layers)]
-                         if "{i}" in key else [(key, arr)]):
-                sd[k] = torch.from_numpy(np.array(_to_module(a, layout), order="C"))
-    return sd
+    dict of CPU tensors in the modules' layout: fp32, and int8 for the
+    ``q`` of an int8 leaf."""
+    return {k: torch.from_numpy(a) for rules, layers in parts for rule in rules
+            for k, a in _leaves(params, layers, *rule)}
 
 
 def tree_from_state_dict(sd: Mapping[str, torch.Tensor], parts: Parts) -> dict:
     """A state dict in the modules' layout as a parameter tree (numpy
-    fp32, the JAX layout).  Reads parameters and anything shaped like them
-    (the optimizer's moments)."""
-    sd = {k: v.detach().float().cpu().numpy() for k, v in sd.items()}
+    fp32, the JAX layout; int8 weights as ``{"q", "s"}`` leaves).  Reads
+    parameters and anything shaped like them (the optimizer's moments)."""
+    sd = {k: (v.float() if v.is_floating_point() else v).detach().cpu().numpy()
+          for k, v in sd.items()}
+
+    def value(key, layout, layers):
+        if "{i}" in key:
+            return np.stack([_to_tree(sd[key.format(i=i)], layout) for i in range(layers)])
+        return _to_tree(sd[key], layout)
+
     tree: dict = {}
     for rules, layers in parts:
         for key, path, layout in rules:
-            if "{i}" in key:
-                value = np.stack([_to_tree(sd[key.format(i=i)], layout)
-                                  for i in range(layers)])
+            if f"{key.format(i=0)}.q" in sd:
+                leaf = {"q": np.array(value(f"{key}.q", layout, layers), order="C"),
+                        "s": np.array(value(f"{key}.s", None, layers), np.float32)}
             else:
-                value = _to_tree(sd[key], layout)
-            _set(tree, path, np.array(value, order="C"))
+                leaf = np.array(value(key, layout, layers), np.float32, order="C")
+            _set(tree, path, leaf)
     return tree
 
 
 def load_params(module: nn.Module, params: dict, parts: Parts) -> nn.Module:
     """Copy a parameter tree into ``module``; every weight of the module
-    must be named by a rule."""
-    module.load_state_dict(state_dict_from_tree(params, parts))
+    must be named by a rule.  An int8 leaf replaces the module's float
+    weight by an ``Int8Weight``."""
+    sd = state_dict_from_tree(params, parts)
+    for rules, layers in parts:
+        for key, path, layout in rules:
+            if _is_int8(_get(params, path)):
+                for k in ([key.format(i=i) for i in range(layers)] if "{i}" in key else [key]):
+                    owner, _, name = k.rpartition(".")
+                    target = module.get_submodule(owner)
+                    delattr(target, name)
+                    setattr(target, name, Int8Weight(sd[f"{k}.q"], sd[f"{k}.s"],
+                                                     out_in=layout == "T"))
+    module.load_state_dict(sd)
     return module
 
 

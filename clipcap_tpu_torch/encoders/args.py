@@ -28,8 +28,9 @@ def add_encoder_args(parser: ArgumentParser) -> ArgumentParser:
     )
     encoder.add_argument(
         "--int8-encoder", type=str2bool, default=False, dest="int8_encoder",
-        help="Run the CLIP ViT block projections as w8a8 int8 matmuls. Not "
-             "ported yet: true raises NotImplementedError (ROADMAP.md A13).",
+        help="Run the CLIP ViT block projections as w8a8 int8 matmuls "
+             "(torch._int_mm). A runtime serving choice — not stored in "
+             "encoder_config.yaml.",
     )
 
     windowed = parser.add_argument_group("windowed")

@@ -3,7 +3,7 @@
 Counterpart of ``clipcap_tpu/encoders/base.py``.  The encoder is callable
 on a batch of transformed samples and returns numpy embeddings; the
 transform maps a file path / BytesIO to one sample array.  Only CLIP ViT
-encoders are ported; CLAP and the int8 (w8a8) encoder raise.
+encoders are ported (``int8``: the w8a8 image tower); CLAP raises.
 """
 from __future__ import annotations
 
@@ -17,9 +17,6 @@ def get_encoder(encoder_model_name: str, encoder_model_variant: str,
                 use_windowed_embeddings: bool = False, window_overlap_percentage: float = 0.0,
                 device="cuda", checkpoint_path: Optional[str] = None,
                 int8: bool = False) -> Tuple[Callable, Callable]:
-    if int8:
-        raise NotImplementedError("the int8 (w8a8) encoder is not ported yet "
-                                  "(ROADMAP.md A13: ops/quant.py)")
     if encoder_model_name == "clip":
         from clipcap_tpu_torch.encoders.clip import get_clip_encoder
 
@@ -28,7 +25,7 @@ def get_encoder(encoder_model_name: str, encoder_model_variant: str,
                                 window_size=window_size,
                                 window_overlap_percentage=window_overlap_percentage,
                                 normalize_embeddings=normalize_embeddings,
-                                checkpoint_path=checkpoint_path, device=device)
+                                checkpoint_path=checkpoint_path, device=device, int8=int8)
     if encoder_model_name == "clap":
         raise NotImplementedError("the CLAP encoder is not ported yet (ROADMAP.md, queue A)")
     raise ValueError(f"invalid encoder name: '{encoder_model_name}'")

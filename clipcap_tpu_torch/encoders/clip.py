@@ -101,13 +101,21 @@ class CLIPEncoder:
     ``[B, W+1, E]``)."""
 
     def __init__(self, model: CLIP, config: CLIPConfig, normalize_embeddings: bool = False,
-                 use_windowed_embeddings: bool = False, dtype=torch.bfloat16):
+                 use_windowed_embeddings: bool = False, dtype=torch.bfloat16,
+                 int8: bool = False):
+        if int8:
+            # w8a8 serving: the image blocks' projection weights quantised
+            # once here, the activations per row at each projection.
+            from clipcap_tpu_torch.ops.quant import quantize_clip_visual_int8
+
+            model = quantize_clip_visual_int8(model)
         self.model = model
         self.config = config
         self.normalize_embeddings = normalize_embeddings
         self.use_windowed_embeddings = use_windowed_embeddings
         self.embedding_size = config.vision.embed_dim
         self.dtype = dtype
+        self.int8 = int8
 
     @property
     def device(self) -> torch.device:
@@ -118,7 +126,7 @@ class CLIPEncoder:
         x = torch.tensor(np.asarray(batch), device=self.device)
         lead = x.shape[:-3]
         out = clip_encode_image(self.model.visual, x.reshape((-1,) + x.shape[-3:]),
-                                dtype=self.dtype)
+                                dtype=self.dtype, int8_acts=self.int8)
         if self.normalize_embeddings:
             out = out / out.norm(dim=-1, keepdim=True)
         return out.float().reshape(*lead, -1).cpu().numpy()
@@ -137,12 +145,14 @@ class CLIPEncoder:
     @torch.no_grad()
     def similarity(self, sample, captions) -> np.ndarray:
         """Image↔caption similarity logits [n_captions] for the rerank;
-        ``sample`` is one transformed image (the global view if windowed)."""
+        ``sample`` is one transformed image (the global view if windowed).
+        An int8 encoder reranks through the same w8a8 image path it embeds
+        with."""
         img = torch.tensor(np.asarray(sample), device=self.device)
         if img.ndim == 4:
             img = img[0]
         logits_per_image, _ = clip_similarity(self.model, img[None], self._tokens(captions),
-                                              dtype=torch.float32)
+                                              dtype=torch.float32, int8_acts=self.int8)
         return logits_per_image[0].cpu().numpy()
 
 
@@ -150,9 +160,9 @@ def get_clip_encoder(encoder_model_variant: str, window_size: Optional[int] = No
                      normalize_embeddings: bool = False, use_windowed_embeddings: bool = False,
                      window_overlap_percentage: float = 0.0,
                      checkpoint_path: Optional[str] = None, device="cuda",
-                     dtype=torch.bfloat16) -> Tuple[Callable, Callable]:
+                     dtype=torch.bfloat16, int8: bool = False) -> Tuple[Callable, Callable]:
     """``(encoder, transform)`` for a CLIP ViT variant on ``device`` (a CUDA
-    device raises when CUDA is absent)."""
+    device raises when CUDA is absent); ``int8``: the w8a8 image tower."""
     model, config = load_clip(encoder_model_variant, checkpoint_path,
                               device=resolve_device(device))
     transform = CLIPTransform(n_px=config.vision.image_size,
@@ -160,5 +170,6 @@ def get_clip_encoder(encoder_model_variant: str, window_size: Optional[int] = No
                               window_size=window_size,
                               window_overlap_percentage=window_overlap_percentage)
     encoder = CLIPEncoder(model, config, normalize_embeddings=normalize_embeddings,
-                          use_windowed_embeddings=use_windowed_embeddings, dtype=dtype)
+                          use_windowed_embeddings=use_windowed_embeddings, dtype=dtype,
+                          int8=int8)
     return encoder, transform

@@ -33,6 +33,7 @@ from clipcap_tpu_torch.eval.dataset import EvalDataset
 from clipcap_tpu_torch.eval.metrics import evaluate_metrics_from_lists
 from clipcap_tpu_torch.inference.args import add_inference_args
 from clipcap_tpu_torch.models.clipcap import load
+from clipcap_tpu_torch.ops.quant import quantize_gpt2_int8
 from clipcap_tpu_torch.utils.braceexpand import braceexpand
 
 
@@ -47,6 +48,8 @@ def prepare_model(args: Namespace):
             "available, so generated captions would not match a pretrained GPT-2 and every "
             "score would be meaningless. Set CLIPCAP_TOKENIZER_PATH to the GPT-2 vocab "
             "files, or pass --allow-fallback-tokenizer to proceed anyway (smoke tests only).")
+    if args.int8_weights:
+        model.language_model = quantize_gpt2_int8(model.language_model)
     encode_method, sample_processor = get_encoder_from_model(model, device=args.device)
     return model, tokenizer, encode_method, sample_processor
 

@@ -13,7 +13,7 @@ no JVM:
   jar's ``org.tartarus.snowball.ext.englishStemmer``
   (clipcap_tpu_torch/eval/snowball.py, validated against nltk's independent
   implementation).  The synonym stage runs on the jar's WordNet tables when
-  ``python -m clipcap_tpu.init`` has fetched them, and otherwise on the
+  ``python -m clipcap_tpu_torch.init`` has fetched them, and otherwise on the
   SHIPPED compact curated table (``data/synonyms_en_compact.txt``) so the
   stage is live by default offline — measured corpus-level effect +0.0069
   METEOR on the committed COCO caption corpus (the full tier table lives in
@@ -35,7 +35,8 @@ no JVM:
   statistics (the jar's ``EVAL`` aggregation).
 
 Resources (all of them the jar's own data, extracted from ``meteor-1.5.jar``
-by ``python -m clipcap_tpu.init`` — the jar is a zip archive):
+by ``python -m clipcap_tpu_torch.init`` into :data:`CACHE_DIR` — the jar is a
+zip archive):
 
 * ``function/en.words`` → the jar's corpus-derived function-word list
   (``default_function_words_path``); without it a hand-curated closed-class
@@ -119,18 +120,23 @@ def load_paraphrase_table(path: str) -> Dict[str, Set[str]]:
     return table
 
 
+# The port's own cache: init puts the jar's resources here and the scorer
+# writes its flattened synonym table here (never the JAX package's cache).
+CACHE_DIR = "~/.cache/clipcap_tpu_torch/meteor"
+
+
 def _default_resource(env_var: str, cache_name: str) -> Optional[str]:
     env = os.environ.get(env_var)
     if env and os.path.exists(env):
         return env
-    cached = os.path.expanduser(f"~/.cache/clipcap_tpu/meteor/{cache_name}")
+    cached = os.path.expanduser(f"{CACHE_DIR}/{cache_name}")
     if os.path.exists(cached):
         return cached
     return None
 
 
 def default_paraphrase_path() -> Optional[str]:
-    """The paraphrase table fetched by ``python -m clipcap_tpu.init``
+    """The paraphrase table fetched by ``python -m clipcap_tpu_torch.init``
     (or pointed at via $CLIPCAP_METEOR_PARAPHRASE)."""
     return _default_resource("CLIPCAP_METEOR_PARAPHRASE", "paraphrase-en.gz")
 
@@ -280,7 +286,7 @@ def _compact_flat_path() -> Optional[str]:
     src = compact_synonyms_path()
     if not os.path.exists(src):
         return None
-    flat = os.path.expanduser("~/.cache/clipcap_tpu/meteor/compact.flat")
+    flat = os.path.expanduser(f"{CACHE_DIR}/compact.flat")
     try:
         if (not os.path.exists(flat)
                 or os.path.getmtime(src) > os.path.getmtime(flat)):
@@ -357,7 +363,7 @@ def get_meteor(synonyms=None, paraphrase_path: Optional[str] = None,
 
                 warnings.warn(
                     "METEOR: cannot cache the flattened compact synonym "
-                    "table (unwritable ~/.cache/clipcap_tpu); using the "
+                    f"table (unwritable {CACHE_DIR}); using the "
                     "Python scorer so the synonym stage stays live.")
         if synonym_paths is not None:
             synonyms = Synonyms.load(*synonym_paths)

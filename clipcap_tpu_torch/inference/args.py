@@ -1,5 +1,5 @@
 """Inference CLI arguments (the JAX package's flags, minus the serving
-mesh and ``--int8-weights``, which are not ported)."""
+mesh, which is not ported)."""
 from argparse import ArgumentParser
 
 from clipcap_tpu_torch.utils.argtypes import str2bool
@@ -36,6 +36,12 @@ def add_inference_args(parser: ArgumentParser) -> ArgumentParser:
                                 "demo does not use it, as in the JAX package).")
     inference.add_argument("--seed", type=int, default=0,
                            help="Sampling RNG seed (decoding is deterministic given a seed).")
+    inference.add_argument("--int8-weights", action="store_true",
+                           help="Serve the language model with int8 per-channel weights "
+                                "(ops/quant): the block projections' weights at a quarter "
+                                "of their fp32 bytes. Off by default: logits move on the "
+                                "order of bf16 rounding, so parity runs should leave this "
+                                "unset.")
     inference.add_argument("--int8-kv-cache", action="store_true",
                            help="Serve with an int8 KV cache (per-slot absmax scales): halves "
                                 "the decode cache's device memory. Off by default for parity.")

@@ -14,11 +14,14 @@ from clipcap_tpu_torch.encoders.base import get_encoder_from_model
 from clipcap_tpu_torch.inference.args import add_inference_args
 from clipcap_tpu_torch.inference.generate import generate_nucleus_sampling
 from clipcap_tpu_torch.models.clipcap import load
+from clipcap_tpu_torch.ops.quant import quantize_gpt2_int8
 
 
 def inference_demo(args: Namespace) -> int:
     model, tokenizer = load(args.model_path, args.config_path, device=args.device,
                             from_checkpoint=args.is_checkpoint)
+    if args.int8_weights:
+        model.language_model = quantize_gpt2_int8(model.language_model)
     text_prefix_tokens = None
     if args.text_prefix is not None:
         text_prefix_tokens = np.asarray(tokenizer.encode(args.text_prefix), np.int64)[None, :]

@@ -26,9 +26,10 @@ import torch
 from torch import nn
 
 from clipcap_tpu_torch.ops.attention import sdpa_packed
-from clipcap_tpu_torch.ops.layers import (LayerNorm, Linear, empty_param, linear,
+from clipcap_tpu_torch.ops.layers import (LayerNorm, Linear, empty_param, in_out, linear,
                                           normal_init, ones_init, quick_gelu, zeros_init)
 from clipcap_tpu_torch.ops.patch_embed import patch_embed, patch_embed_supported, patchify
+from clipcap_tpu_torch.ops.quant import int8_linear
 
 Tensor = torch.Tensor
 
@@ -236,41 +237,62 @@ class CLIP(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _qkv(x: Tensor, block: _ResidualBlock) -> Tensor:
-    return linear(block.ln_1(x), block.attn.in_proj_weight.t(), block.attn.in_proj_bias)
+def _project(x: Tensor, weight, bias: Tensor, int8_acts: bool) -> Tensor:
+    """A block projection; ``weight`` in ``Linear`` layout ``[out, in]``, or
+    an ``Int8Weight``.  ``int8_acts``: the w8a8 product (``ops.quant``)."""
+    if int8_acts:
+        return int8_linear(x, weight, bias)
+    return linear(x, in_out(weight), bias)
 
 
-def _finish_block(x: Tensor, attn: Tensor, block: _ResidualBlock) -> Tensor:
-    x = x + block.attn.out_proj(attn)
-    return x + block.mlp.c_proj(quick_gelu(block.mlp.c_fc(block.ln_2(x))))
+def _qkv(x: Tensor, block: _ResidualBlock, int8_acts: bool) -> Tensor:
+    return _project(block.ln_1(x), block.attn.in_proj_weight, block.attn.in_proj_bias,
+                    int8_acts)
 
 
-def _clip_block(x: Tensor, block: _ResidualBlock, heads: int, causal: bool = False) -> Tensor:
+def _finish_block(x: Tensor, attn: Tensor, block: _ResidualBlock, int8_acts: bool) -> Tensor:
+    out_proj, mlp = block.attn.out_proj, block.mlp
+    x = x + _project(attn, out_proj.weight, out_proj.bias, int8_acts)
+    h = quick_gelu(_project(block.ln_2(x), mlp.c_fc.weight, mlp.c_fc.bias, int8_acts))
+    return x + _project(h, mlp.c_proj.weight, mlp.c_proj.bias, int8_acts)
+
+
+def _clip_block(x: Tensor, block: _ResidualBlock, heads: int, causal: bool = False,
+                int8_acts: bool = False) -> Tensor:
     """Pre-norm block: biased MHA through the packed-qkv kernel wrapper,
     QuickGELU MLP."""
-    return _finish_block(x, sdpa_packed(_qkv(x, block), heads, causal=causal), block)
+    attn = sdpa_packed(_qkv(x, block, int8_acts), heads, causal=causal)
+    return _finish_block(x, attn, block, int8_acts)
 
 
-def _clip_block_cls(x: Tensor, block: _ResidualBlock, heads: int) -> Tensor:
+def _clip_block_cls(x: Tensor, block: _ResidualBlock, heads: int,
+                    int8_acts: bool = False) -> Tensor:
     """The final image block restricted to the class-token row (the only
     row ``clip_encode_image`` keeps): q for row 0 only, k/v over all rows,
     the MLP on one token.  Returns [B, D]."""
     B, N, D = x.shape
     Dh = D // heads
-    q, k, v = (t.reshape(B, N, heads, Dh) for t in _qkv(x, block).split(D, dim=-1))
+    q, k, v = (t.reshape(B, N, heads, Dh)
+               for t in _qkv(x, block, int8_acts).split(D, dim=-1))
     logits = torch.einsum("bnhd,bmhd->bhnm", q[:, :1], k) * Dh ** -0.5
     w = torch.softmax(logits.float(), dim=-1).to(x.dtype)
     a = torch.einsum("bhnm,bmhd->bnhd", w, v).reshape(B, 1, D)
-    return _finish_block(x[:, :1], a, block)[:, 0]
+    return _finish_block(x[:, :1], a, block, int8_acts)[:, 0]
 
 
 def clip_encode_image(visual: VisionTransformer, images: Tensor, *,
-                      dtype=torch.float32, normalize_pixels: bool = True) -> Tensor:
+                      dtype=torch.float32, normalize_pixels: bool = True,
+                      int8_acts: bool = False) -> Tensor:
     """ViT forward → [B, embed_dim] (``model.encode_image``).  ``images``:
     [B, H, W, 3] uint8 (or float in [0, 1]).  In bf16, uint8 images whose
     sides divide by the patch take the patch-embed kernel wrapper (the CUDA
     kernel for tensors on the card); every other input the eager
-    ``patchify`` + ``linear``."""
+    ``patchify`` + ``linear``.
+
+    ``int8_acts`` runs the block projections as w8a8 products
+    (``ops.quant.int8_linear``); the blocks must then hold the int8 weights
+    of ``ops.quant.quantize_clip_visual_int8``.  Attention, layer norms,
+    the patch embedding and the final projection stay in ``dtype``."""
     cfg = visual.config
     D, p = cfg.width, cfg.patch_size
     w32 = visual.conv1.weight.float().reshape(D, -1).t()        # [3·p·p, D]
@@ -304,8 +326,8 @@ def clip_encode_image(visual: VisionTransformer, images: Tensor, *,
     x = visual.ln_pre(x)
     *body, last = visual.transformer.resblocks
     for block in body:
-        x = _clip_block(x, block, cfg.heads)
-    x = visual.ln_post(_clip_block_cls(x, last, cfg.heads))
+        x = _clip_block(x, block, cfg.heads, int8_acts=int8_acts)
+    x = visual.ln_post(_clip_block_cls(x, last, cfg.heads, int8_acts))
     return x @ visual.proj.to(x.dtype)
 
 
@@ -324,9 +346,11 @@ def clip_encode_text(clip: CLIP, tokens: Tensor, *, dtype=torch.float32) -> Tens
 
 
 def clip_similarity(clip: CLIP, images: Tensor, tokens: Tensor, *,
-                    dtype=torch.float32) -> Tuple[Tensor, Tensor]:
-    """Scaled cosine-similarity logits ``(logits_per_image, logits_per_text)``."""
-    img = clip_encode_image(clip.visual, images, dtype=dtype)
+                    dtype=torch.float32, int8_acts: bool = False) -> Tuple[Tensor, Tensor]:
+    """Scaled cosine-similarity logits ``(logits_per_image, logits_per_text)``.
+    ``int8_acts`` as :func:`clip_encode_image`'s: a visual tower quantised
+    for w8a8 reranks through the same path it embeds with."""
+    img = clip_encode_image(clip.visual, images, dtype=dtype, int8_acts=int8_acts)
     txt = clip_encode_text(clip, tokens, dtype=dtype)
     img = img / img.norm(dim=-1, keepdim=True)
     txt = txt / txt.norm(dim=-1, keepdim=True)

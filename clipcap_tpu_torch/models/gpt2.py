@@ -33,6 +33,10 @@ dict.  The forward is :func:`gpt2_apply`, as in the JAX package:
   the live beam cache holds the generated positions only, and decode
   attention is one two-phase kernel pass over both
   (``ops.flash_decode.flash_decode_two_phase``).
+* int8 weights (``ops.quant.quantize_gpt2_int8``): the block projections'
+  ``Conv1D`` modules hold an ``Int8Weight``, which ``ops.layers.linear``
+  serves as a weight-only int8 product in prefill, decode and the
+  full-sequence forward alike; decode attention is unchanged.
 """
 from __future__ import annotations
 

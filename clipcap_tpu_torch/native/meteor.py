@@ -3,7 +3,7 @@ clipcap_tpu_torch.eval.meteor.Meteor; exact + Snowball-stem + synonym +
 paraphrase matcher stages, jar function-word list).
 
 The paraphrase table is the meteor ``paraphrase-en.gz`` the reference jar
-reads (fetched by ``python -m clipcap_tpu.init``); since the C++ core reads
+reads (fetched by ``python -m clipcap_tpu_torch.init``); since the C++ core reads
 plain text, a ``.txt`` sidecar is decompressed next to the ``.gz`` once.
 The synonym table is the flat folded form materialized by
 ``clipcap_tpu_torch.eval.meteor._flat_synonyms_path`` from the jar's WordNet

@@ -58,10 +58,38 @@ def layer_norm(x: Tensor, scale: Tensor, bias: Tensor, eps: float = 1e-5) -> Ten
     return y.to(orig)
 
 
-def linear(x: Tensor, w: Tensor, b: Optional[Tensor] = None) -> Tensor:
+class Int8Weight(nn.Module):
+    """A projection weight in the JAX package's int8 ``{"q", "s"}`` form
+    (``ops.quant.quantize_linear``): ``w ≈ q · s`` with int8 ``q`` and fp32
+    per-output-channel scales ``s`` [out].  ``q`` keeps the layout of the
+    weight it replaces: ``[in, out]`` for a ``Conv1D``, ``[out, in]``
+    (``out_in``) for a ``Linear`` layout; :meth:`in_out` is the ``[in, out]``
+    view either way (column-major for ``out_in``)."""
+
+    def __init__(self, q: Tensor, s: Tensor, out_in: bool):
+        super().__init__()
+        self.register_buffer("q", q)
+        self.register_buffer("s", s)
+        self.out_in = out_in
+
+    def in_out(self) -> Tensor:
+        return self.q.t() if self.out_in else self.q
+
+
+def linear(x: Tensor, w, b: Optional[Tensor] = None) -> Tensor:
     """``x @ w (+ b)`` with ``w`` stored ``[in, out]`` (HF ``Conv1D``
-    layout) and cast to the dtype of ``x``."""
-    y = x @ w.to(x.dtype)
+    layout) and cast to the dtype of ``x``.
+
+    ``w`` may also be an :class:`Int8Weight` (weight-only int8, w8a16): as
+    in the JAX package, ``q`` is widened to the compute dtype, and the
+    per-channel scale, cast to the product's dtype, applies to the output
+    (``x @ q·diag(s) == (x @ q)·s``).  XLA fuses the widening into the
+    dot; eager PyTorch writes a widened copy of ``q`` on every call."""
+    if isinstance(w, Int8Weight):
+        y = x @ w.in_out().to(x.dtype)
+        y = y * w.s.to(y.dtype)
+    else:
+        y = x @ w.to(x.dtype)
     if b is not None:
         y = y + b.to(y.dtype)
     return y
@@ -114,7 +142,13 @@ class Linear(nn.Module):
         self.bias = empty_param(n_out) if bias else None
 
     def forward(self, x: Tensor) -> Tensor:
-        return linear(x, self.weight.t(), self.bias)
+        return linear(x, in_out(self.weight), self.bias)
+
+
+def in_out(weight) -> Tensor:
+    """A ``[out, in]`` weight (``Linear`` layout) as ``linear`` takes it:
+    transposed, or an :class:`Int8Weight` as it is (it knows its layout)."""
+    return weight if isinstance(weight, Int8Weight) else weight.t()
 
 
 # Initializers: numpy on the host, the same draws in the same order as the

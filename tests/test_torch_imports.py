@@ -33,7 +33,11 @@ import clipcap_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(clipcap_tpu_torch.__path__, "clipcap_tpu_torch.")
          if m.name.rsplit(".", 1)[-1] != "__main__"]
 assert {"clipcap_tpu_torch.eval.base", "clipcap_tpu_torch.eval.spice_parser",
-        "clipcap_tpu_torch.native.meteor", "clipcap_tpu_torch.native.ptb_tokenizer"} <= set(names)
+        "clipcap_tpu_torch.native.meteor", "clipcap_tpu_torch.native.ptb_tokenizer",
+        "clipcap_tpu_torch.finetune", "clipcap_tpu_torch.init", "clipcap_tpu_torch.init.base",
+        "clipcap_tpu_torch.ops.quant", "clipcap_tpu_torch.utils.export_checkpoint",
+        "clipcap_tpu_torch.utils.merge_preprocessed_datasets",
+        "clipcap_tpu_torch.utils.scoring", "clipcap_tpu_torch.utils.profiling"} <= set(names)
 for name in names:
     importlib.import_module(name)
 bad = sorted(n for n in sys.modules

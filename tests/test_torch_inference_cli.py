@@ -118,9 +118,8 @@ def _flags(parser: ArgumentParser) -> dict:
             if s.startswith("--") and s != "--help"}
 
 
-# Absent from the port on purpose: int8 weights (ROADMAP A13) and the
-# serving mesh (A9).
-NOT_PORTED = {"--int8-weights", "--mesh-data", "--mesh-model"}
+# Absent from the port on purpose: the serving mesh (ROADMAP A9).
+NOT_PORTED = {"--mesh-data", "--mesh-model"}
 
 
 def test_inference_flags_match_the_jax_parser():

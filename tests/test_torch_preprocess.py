@@ -306,8 +306,8 @@ def test_what_is_not_ported_raises(tmp_path):
     data = _files_dataset(tmp_path / "raw", n=1)
     argv = ["--input-dataset", data, "--output-folder", str(tmp_path / "out"),
             "--encoder-model-variant", "test-tiny"]
-    with pytest.raises(NotImplementedError, match="A13"):
-        preprocess(_port_args([*argv, "--device", "cpu", "--int8-encoder", "true"]))
+    with pytest.raises(NotImplementedError, match="CLAP"):
+        preprocess(_port_args([*argv, "--device", "cpu", "--encoder-model-name", "clap"]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             start_preprocess(argv)                   # --device cuda, the default
