@@ -155,7 +155,41 @@ Phases (any failure exits non-zero before the last line):
    memory at b96 bf16, C = 0, bf16 and int8 caches, beside phase 7's bf16
    weights, a ``torch.profiler`` breakdown of one int8-cache batch cut to
    8 new tokens, as phase 7's, and the time of the eager int8 → bf16
-   widening of one forward's block weights.
+   widening of one forward's block weights;
+11. audio captioning at full width (CLAP: HTSAT-tiny with a RoBERTa-base
+   text tower and the 768 → 512 → 512 projections, seeded, saved as one
+   laion_clap-format ``.pt`` that ``load_clap`` reads through
+   ``$CLIPCAP_CLAP_CHECKPOINT``), each path with its counts set to 0 just
+   before and read just after: (a) 256 seeded WAV clips (half 10 s at
+   44.1 kHz stereo, half 20 s at 48 kHz mono) through
+   ``start_preprocess(argv)`` with ``--encoder-model-name clap``, batch
+   64; gates: exit 0, finite fp32 [256, 512] rows, captions equal to the
+   sources, ``encoder_embedding_size: 512``, and 8 clips' fp32 embeddings
+   on the card within 1e-3 (‖d‖/‖ref‖) of the port's CPU forward, in
+   plain mode and in fusion mode (a seeded fusion checkpoint with
+   ``mel_conv2d`` and AFF, on 8 clips of 25 s); (b) training on that
+   dataset (GPT-2 124M + 8-layer mapper, prefix-only, bf16, batch 64, the
+   fused-AdamW kernel, one epoch: ``fused_adamw`` launched each step, finite
+   losses); (c) ``load`` + ``get_encoder_from_model`` (the CLAP encoder) +
+   beam 5 on one clip, fp32 beam-5 tokens through the kernels equal to those
+   through the twin; (d) nucleus sampling and the CLAP rerank, whose
+   similarities on the card are within 1e-4 of the CPU's; (e) the inference
+   CLI's function on one ``.wav``; (f) the eval function on 32 clips with a
+   seeded five-reference CSV, batch 32 x 5 (exit 0, finite metrics);
+   ``flash_decode`` launched in each of (c)-(f).  Information: HTSAT-tiny
+   b64 fp32 embeds/s, the preprocess runner's clips/s and split, a
+   ``torch.profiler`` breakdown of one encoder batch, and the rerank's text
+   tower at 5 and 160 captions;
+12. the CLIP ResNet towers: a seeded RN50 in OpenAI's layout through
+   ``$CLIPCAP_CLIP_CHECKPOINT``; ``start_preprocess(argv)`` with
+   ``--encoder-model-variant RN50``, batch 256, on phase 8's first 256
+   images (exit 0, finite [256, 1024] rows, ``patch_embed`` not launched);
+   8 images' fp32 RN50 embeddings on the card within 1e-3 of the CPU's;
+   ``CLIPEncoder.similarity`` launching ``sdpa_packed`` (the text tower);
+   a 20-token beam-5 caption from an RN50-conditioned checkpoint launching
+   ``flash_decode``; RN50x64 at 448 px, one seeded bf16 batch of 32, finite
+   [32, 1024].  Information: RN50 b256 and RN50x64 b32 bf16 embeds/s and a
+   ``torch.profiler`` breakdown of one RN50 batch.
 
 Every kernel's row carries its bound (bytes over 3.35 TB/s or operations
 over the data sheet's peak, whichever is larger) and the time of one
@@ -178,6 +212,7 @@ os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
 
 import contextlib  # noqa: E402
 import copy  # noqa: E402
+import dataclasses  # noqa: E402
 import gc  # noqa: E402
 import io  # noqa: E402
 import json  # noqa: E402
@@ -1219,7 +1254,7 @@ class _Tee(io.TextIOBase):
 
 
 def train_cli(dev, root: Path, out: Path, label: str, extra, embedding, model_args=MODEL_ARGS,
-              start=None):
+              start=None, rows: int = TRAIN_ROWS):
     """Phase 6b: one run of ``clipcap_tpu_torch.train``'s entry point (or
     ``start``, another entry point that takes the same argv) on the card,
     then its final checkpoint through ``load`` and ``generate_beam``.
@@ -1245,7 +1280,7 @@ def train_cli(dev, root: Path, out: Path, label: str, extra, embedding, model_ar
     launches = fused_adamw.launches
     seconds = time.perf_counter() - t0
     losses = [float(x) for x in re.findall(r" loss (\S+) ", log.getvalue())]
-    steps = math.ceil(TRAIN_ROWS / TRAIN_BATCH)
+    steps = math.ceil(rows / TRAIN_BATCH)
     print(f"train ({label}): exit {rc} in {seconds:.1f} s (model build, {len(losses)} steps, "
           f"checkpoints); losses {[round(x, 4) for x in losses]}; fused_adamw launches "
           f"{launches}")
@@ -1825,10 +1860,12 @@ def write_preprocess_inputs(root: Path):
     return file_captions, wds_captions
 
 
-def preprocess_cli(dev, label: str, argv, built: list, n: int):
+def preprocess_cli(dev, label: str, argv, built: list, n: int, variant: str = PRE_VARIANT,
+                   batch: int = PRE_BATCH, unit: str = "images"):
     """Phase 8b: one run of ``clipcap_tpu_torch.preprocess``'s entry point;
-    the encoder it builds is kept in ``built``.  Prints images/s end to end
-    (encoder build included) and the runner's split."""
+    the encoder it builds is kept in ``built``.  Prints items/s end to end
+    (encoder build included) and the runner's split, and returns the
+    runner's split in seconds."""
     import importlib
 
     from clipcap_tpu_torch.encoders.base import get_encoder_from_config
@@ -1844,41 +1881,42 @@ def preprocess_cli(dev, label: str, argv, built: list, n: int):
     with warnings.catch_warnings(), contextlib.redirect_stdout(_Tee(sys.stdout, log)), \
             mock.patch.object(pre_mod, "get_encoder_from_config", recording):
         warnings.simplefilter("ignore")               # seeded CLIP: no checkpoint offline
-        rc = pre_mod.start_preprocess([*argv, "--encoder-model-variant", PRE_VARIANT,
-                                       "--batch-size", str(PRE_BATCH), "--device", str(dev)])
+        rc = pre_mod.start_preprocess([*argv, "--encoder-model-variant", variant,
+                                       "--batch-size", str(batch), "--device", str(dev)])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     split = {}
     for text in re.findall(r"^partition \d+: .*; (.*)\)$", log.getvalue(), re.M):
         for name, secs in re.findall(r"([\w/]+) ([\d.]+)s", text):
             split[name] = round(split.get(name, 0.0) + float(secs), 3)
-    print(f"preprocess ({label}): exit {rc}; {n} images in {seconds:.1f} s end to end, encoder "
-          f"build included ({n / seconds:.1f} images/s); runner {split} s "
-          f"({n / max(sum(split.values()), 1e-9):.1f} images/s)")
+    print(f"preprocess ({label}): exit {rc}; {n} {unit} in {seconds:.1f} s end to end, encoder "
+          f"build included ({n / seconds:.1f} {unit}/s); runner {split} s "
+          f"({n / max(sum(split.values()), 1e-9):.1f} {unit}/s)")
     if rc != 0:
         raise AssertionError(f"preprocess ({label}): exit {rc}")
+    return split
 
 
-def check_dataset(out: Path, partitions: list, label: str):
+def check_dataset(out: Path, partitions: list, label: str, dim: int = PRE_DIM,
+                  variant: str = PRE_VARIANT):
     """Phase 8c: the layout the JAX package writes; ``partitions`` holds
     each partition's source captions in key order."""
     import pandas as pd
     import yaml
 
     config = yaml.safe_load((out / "encoder_config.yaml").read_text())
-    if (config["encoder_embedding_size"], config["encoder_model_variant"]) != (PRE_DIM,
-                                                                               PRE_VARIANT):
+    if (config["encoder_embedding_size"], config["encoder_model_variant"]) != (dim, variant):
         raise AssertionError(f"preprocess ({label}): encoder_config.yaml {config}")
     for i, captions in enumerate(partitions):
         e = np.load(out / "embeddings" / f"embeds_{i}.npy")
         got = list(pd.read_parquet(out / "captions" / f"captions_{i}.parquet")["caption"])
-        if e.dtype != np.float32 or e.shape != (len(captions), PRE_DIM) \
+        if e.dtype != np.float32 or e.shape != (len(captions), dim) \
                 or not np.isfinite(e).all():
             raise AssertionError(f"preprocess ({label}): embeds_{i} {e.dtype} {e.shape}")
         if got != captions:
             raise AssertionError(f"preprocess ({label}): captions_{i} differ from the sources")
-    print(f"preprocess ({label}): {[len(c) for c in partitions]} rows x {PRE_DIM} fp32, finite; "
-          f"captions equal the sources in key order; encoder_embedding_size {PRE_DIM}")
+    print(f"preprocess ({label}): {[len(c) for c in partitions]} rows x {dim} fp32, finite; "
+          f"captions equal the sources in key order; encoder_embedding_size {dim}")
 
 
 def run_preprocess(dev, workdir: Path, tag: str):
@@ -2476,10 +2514,468 @@ def run_w8a8(dev, clip, raw: Path, workdir: Path, file_captions, bf16_rates, tag
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: audio captioning (CLAP: HTSAT-tiny, log-mel, RoBERTa rerank)
+# ---------------------------------------------------------------------------
+
+AUDIO_CLIPS, AUDIO_FUSION, AUDIO_BATCH, AUDIO_DIM, AUDIO_EVAL = 256, 8, 64, 512, 32
+AUDIO_CHECK, RERANK_SIZES = 8, (5, 160)   # clips held card against CPU; captions timed
+AUDIO_WORDS = ("a dog barks car passes rain falls on the roof people talk while bird sings "
+               "engine hums water runs wind blows door closes loudly softly").split()
+
+
+def _write_wav(path: Path, data: np.ndarray, rate: int) -> None:
+    """int16 PCM WAV of ``data`` ([frames] or [frames, channels], in [-1, 1])."""
+    import wave
+
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1 if data.ndim == 1 else data.shape[1])
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes((np.clip(data, -1, 1) * 32767).astype("<i2").tobytes())
+
+
+def write_audio_inputs(root: Path):
+    """Phase 11a: 256 seeded WAV clips with ``.txt`` captions, alternately
+    10 s at 44.1 kHz stereo (AudioCaps-like: resampled and mixed down on
+    the host) and 20 s at 48 kHz mono (Clotho-like: cut to 10 s in plain
+    mode), each a seeded tone under seeded noise; and 8 clips of 25 s at
+    48 kHz for the fusion check.  Returns the captions in key order."""
+    rng = np.random.default_rng(11)
+
+    def clip(rate, seconds):
+        t = np.arange(rate * seconds, dtype=np.float32) / rate
+        tone = np.sin(2 * np.pi * rng.uniform(100, 4000) * t, dtype=np.float32)
+        return 0.25 * tone + 0.05 * rng.standard_normal(t.shape, dtype=np.float32)
+
+    clips, fusion = root / "clips", root / "fusion"
+    clips.mkdir(parents=True)
+    fusion.mkdir()
+    captions = []
+    for i in range(AUDIO_CLIPS):
+        if i % 2 == 0:
+            x = clip(44100, 10)
+            _write_wav(clips / f"clip_{i:05d}.wav", np.stack([x, 0.8 * x], axis=1), 44100)
+        else:
+            _write_wav(clips / f"clip_{i:05d}.wav", clip(48000, 20), 48000)
+        captions.append(" ".join(rng.choice(AUDIO_WORDS, 6)))
+        (clips / f"clip_{i:05d}.txt").write_text(captions[-1])
+    for i in range(AUDIO_FUSION):
+        _write_wav(fusion / f"long_{i:02d}.wav", clip(48000, 25), 48000)
+    return captions
+
+
+def write_clap_checkpoints(root: Path):
+    """Phase 11a: seeded laion_clap-format checkpoints at full width:
+    HTSAT-tiny with a RoBERTa-base text tower and the 768 → 512 → 512
+    projections, and the fusion variant's audio half (``mel_conv2d``, AFF)."""
+    from clipcap_tpu_torch.convert import clap_text_from_params, htsat_from_params
+    from clipcap_tpu_torch.models.htsat import CLAP_PRESETS, init_htsat
+    from clipcap_tpu_torch.models.roberta import RobertaConfig, init_roberta
+
+    cfg, rcfg = CLAP_PRESETS["HTSAT-tiny"], RobertaConfig()
+    rng = np.random.default_rng(12)
+
+    def lin(n_in, n_out):
+        return {"w": rng.normal(0, 0.02, (n_in, n_out)).astype(np.float32),
+                "b": np.zeros(n_out, np.float32)}
+
+    text = clap_text_from_params({"roberta": init_roberta(rcfg, seed=12),
+                                  "projection": {"fc1": lin(rcfg.hidden_size, AUDIO_DIM),
+                                                 "fc2": lin(AUDIO_DIM, AUDIO_DIM)}}, rcfg)
+    audio = htsat_from_params(init_htsat(cfg, seed=11), cfg)
+    plain = root / "clap_htsat_tiny.pt"
+    torch.save({"state_dict": {**audio.state_dict(), **text.state_dict()}}, plain)
+    fcfg = dataclasses.replace(cfg, enable_fusion=True)
+    fused = root / "clap_htsat_tiny_fusion.pt"
+    torch.save({"state_dict": htsat_from_params(init_htsat(fcfg, seed=13), fcfg).state_dict()},
+               fused)
+    return plain, fused
+
+
+def rel_err(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def clap_card_vs_cpu(dev, files, label: str, checkpoint=None) -> float:
+    """Phase 11a: the fp32 embeddings of ``files`` on the card against the
+    port's CPU forward of the same samples (‖d‖/‖ref‖, gate 1e-3)."""
+    from clipcap_tpu_torch.encoders.clap import get_clap_encoder
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        card, transform = get_clap_encoder("HTSAT-tiny", checkpoint_path=checkpoint, device=dev)
+        cpu, _ = get_clap_encoder("HTSAT-tiny", checkpoint_path=checkpoint, device="cpu")
+    batch = np.stack([transform(str(f)) for f in files])
+    got, want = card(batch), cpu(batch)
+    err = rel_err(got, want)
+    print(f"audio: {label}: {len(files)} clips {tuple(batch.shape[1:])} fp32 on the card vs the "
+          f"CPU: ‖d‖/‖ref‖ {err:.3g} (gate 1e-3), fusion {card.config.enable_fusion}")
+    if got.shape != (len(files), AUDIO_DIM) or not np.isfinite(got).all() or not err <= 1e-3:
+        raise AssertionError(f"audio: {label}: card vs CPU {err}")
+    return err
+
+
+def run_audio(dev, workdir: Path, tag: str) -> dict:
+    """Phase 11: audio captioning at full width, weights seeded: HTSAT-tiny
+    with RoBERTa-base through ``$CLIPCAP_CLAP_CHECKPOINT`` (preprocess never
+    reads ``--encoder-checkpoint-path``: ROADMAP C5).  (a) preprocess of 256
+    WAVs, the card against the CPU in plain and fusion mode; (b) training on
+    the CLAP embeddings; (c) ``load`` + ``get_encoder_from_model`` + beam 5
+    on a clip, fp32 tokens kernels = twins; (d) sampling + the rerank, card
+    against the CPU; (e) the inference CLI's function on a ``.wav``; (f)
+    eval on 32 clips.  Returns the launches of rows 1 and 6 on this path."""
+    from argparse import ArgumentParser
+
+    from clipcap_tpu_torch import (generate_beam, generate_nucleus_sampling,
+                                   get_encoder_from_model, load)
+    from clipcap_tpu_torch.encoders.clap import CLAPEncoder, get_clap_encoder
+    from clipcap_tpu_torch.inference.args import add_inference_args
+    from clipcap_tpu_torch.inference.beam import BeamParams, beam_search_batched
+    from clipcap_tpu_torch.inference.demo import inference_demo
+    from clipcap_tpu_torch.models import gpt2
+    from clipcap_tpu_torch.models.htsat import clap_audio_embedding
+    from clipcap_tpu_torch.ops.flash_decode import flash_decode, flash_decode_ref
+
+    t_phase = time.perf_counter()
+    captions = write_audio_inputs(workdir)
+    plain_ckpt, fusion_ckpt = write_clap_checkpoints(workdir)
+    print(f"audio: wrote {AUDIO_CLIPS} + {AUDIO_FUSION} seeded WAVs and the seeded HTSAT-tiny + "
+          f"RoBERTa-base checkpoints in {time.perf_counter() - t_phase:.1f} s")
+    clips = sorted((workdir / "clips").glob("*.wav"))
+    launches = {}
+    with mock.patch.dict(os.environ, {"CLIPCAP_CLAP_CHECKPOINT": str(plain_ckpt)}):
+        # (a) preprocess: the main path's first stage.
+        built, out = [], workdir / "dataset"
+        preprocess_cli(dev, "CLAP, WAV files", ["--input-dataset", str(workdir / "clips"),
+                                                "--output-folder", str(out),
+                                                "--encoder-model-name", "clap",
+                                                "--media-file-extensions", "wav"],
+                       built, AUDIO_CLIPS, variant="HTSAT-tiny", batch=AUDIO_BATCH,
+                       unit="clips")
+        check_dataset(out, [captions], "CLAP", dim=AUDIO_DIM, variant="HTSAT-tiny")
+        encoder, transform = built[0]
+        if not isinstance(encoder, CLAPEncoder) or encoder.text[1].hidden_size != 768:
+            raise AssertionError(f"audio: preprocess built {type(encoder).__name__}")
+        clap_card_vs_cpu(dev, clips[:AUDIO_CHECK], "plain, 10 s window")
+        clap_card_vs_cpu(dev, sorted((workdir / "fusion").glob("*.wav")), "fusion, 25 s clips",
+                         checkpoint=str(fusion_ckpt))
+
+        # (b) training on the CLAP embeddings.
+        embedding = torch.from_numpy(np.load(out / "embeddings" / "embeds_0.npy")[0]).to(dev)
+        launches["fused_adamw"] = train_cli(dev, out, workdir / "train", "CLAP embeddings, "
+                                            "prefix-only", [], embedding, rows=AUDIO_CLIPS)
+        ckpt = workdir / "train"
+        del built, encoder
+
+        # (c) load + the encoder of the checkpoint + beam 5 on one clip.
+        model, tokenizer = load(str(ckpt / "clipcap_final.npz"),
+                                str(ckpt / "clipcap_config.yaml"), device=dev)
+        encoder, transform = get_encoder_from_model(model)
+        if not isinstance(encoder, CLAPEncoder) or encoder.device.type != torch.device(dev).type:
+            raise AssertionError(f"audio: get_encoder_from_model gave {type(encoder).__name__}")
+        sample = transform(str(clips[1]))
+        flash_decode.launches = 0
+        prefix = model.transformer_mapper(encoder(sample[None]))
+        beams = generate_beam(model, tokenizer, prefix, number_to_generate=5, beam_size=K)
+        sync(dev)
+        launches["beam"] = flash_decode.launches
+        bp = BeamParams(beam_size=K, max_new_tokens=N_NEW, stop_token=tokenizer.eos_token_id)
+        kern = beam_search_batched(model.language_model, prefix.float(), bp, dtype=torch.float32)
+        n1 = flash_decode.launches
+        with mock.patch.object(gpt2, "flash_decode", flash_decode_ref):
+            twin = beam_search_batched(model.language_model, prefix.float(), bp,
+                                       dtype=torch.float32)
+        if flash_decode.launches != n1 or not torch.equal(kern.tokens, twin.tokens):
+            raise AssertionError("audio: fp32 beam-5 tokens differ between kernels and twins")
+        print(f"audio: beam 5 on {clips[1].name}: {len(beams)} captions, best {beams[0]!r}; "
+              f"fp32 tokens kernels == twins ({kern.tokens.numel()} tokens)")
+
+        # (d) sampling + the CLAP rerank, the card against the CPU.
+        flash_decode.launches = 0
+        candidates = generate_nucleus_sampling(model, tokenizer, prefix, number_to_generate=5,
+                                               top_p=0.9)
+        # The seeded captioner's samples may repeat, so three captions of
+        # other lengths join them.
+        candidates += ["a dog barks twice", "rain falls on the roof of a car",
+                       "people talk while a bird sings and an engine hums in the distance"]
+        sims = encoder.similarity(sample, candidates)
+        sync(dev)
+        launches["sampling"] = flash_decode.launches
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            cpu_encoder, _ = get_clap_encoder("HTSAT-tiny", device="cpu")
+        cpu_sims = cpu_encoder.similarity(sample, candidates)
+        d = float(np.abs(sims - cpu_sims).max())
+        print(f"audio: rerank of 5 sampled + 3 fixed captions: sims "
+              f"{np.round(sims, 4).tolist()}; card vs CPU max|d| {d:.3g} (gate 1e-4)")
+        if sims.shape != (8,) or not np.isfinite(sims).all() or not d <= 1e-4:
+            raise AssertionError(f"audio: rerank {sims} against the CPU's {cpu_sims}")
+
+        # (e) the inference CLI's function on one .wav.
+        args = add_inference_args(ArgumentParser()).parse_args(
+            ["--model-path", str(ckpt / "clipcap_final.npz"), "--config-path",
+             str(ckpt / "clipcap_config.yaml"), "--sample-path", str(clips[0]),
+             "--device", str(dev), "--number-to-generate", "5"])
+        flash_decode.launches = 0
+        log = io.StringIO()
+        with warnings.catch_warnings(), contextlib.redirect_stdout(log):
+            warnings.simplefilter("ignore")
+            rc = inference_demo(args)
+        launches["cli"] = flash_decode.launches
+        lines = log.getvalue().splitlines()
+        if rc != 0 or sum(ln.startswith("sim ") for ln in lines) != 5 or "best" not in lines[-1]:
+            raise AssertionError(f"audio: inference CLI exit {rc}, output {lines}")
+        print(f"audio: inference CLI on {clips[0].name}: 5 captions; {lines[-1]!r}")
+
+        # (f) eval on 32 clips, five references each, batch 32 x 5.
+        launches["eval"] = run_audio_eval(dev, ckpt, clips[:AUDIO_EVAL], workdir)
+        print(f"audio: flash_decode launches {launches}")
+        for key in ("beam", "sampling", "cli", "eval"):
+            if launches[key] == 0:
+                raise AssertionError(f"audio: {key} never launched flash_decode")
+
+        # Information: HTSAT-tiny b64 fp32 embeds/s, a profile of one batch,
+        # and the rerank's text tower at 5 and 160 captions.
+        g = torch.Generator(device=dev).manual_seed(3)
+        inputs = [0.1 * torch.randn(AUDIO_BATCH, 480_000, generator=g, device=dev)
+                  for _ in range(3)]
+
+        @torch.no_grad()
+        def embed(x):
+            return clap_audio_embedding(encoder.audio, x)
+
+        per_trial = rate(embed, inputs, AUDIO_BATCH)
+        med = statistics.median(per_trial)
+        print(f"time [{tag}] HTSAT-tiny b{AUDIO_BATCH} fp32 (10 s at 48 kHz, log-mel on the "
+              f"card): embeds/s per trial {per_trial}; median {med:.1f}")
+        profile(embed, inputs[0], AUDIO_BATCH * 1e3 / med, f"HTSAT-tiny b{AUDIO_BATCH} fp32",
+                tag, top=10)
+        words = [" ".join(np.random.default_rng(i).choice(AUDIO_WORDS, 8))
+                 for i in range(max(RERANK_SIZES))]
+        for n in RERANK_SIZES:
+            encoder.encode_text(words[:n])
+            sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(5):
+                encoder.encode_text(words[:n])
+            sync(dev)
+            print(f"time [{tag}] CLAP rerank text tower (RoBERTa-base + projection, fp32, 77 "
+                  f"tokens) at {n} captions: {(time.perf_counter() - t0) / 5 * 1e3:.2f} ms a call")
+        del inputs, encoder, cpu_encoder, model
+    print(f"audio: phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def run_audio_eval(dev, ckpt: Path, clips, workdir: Path) -> int:
+    """Phase 11f: ``clipcap_tpu_torch.eval`` on ``clips`` with a seeded
+    five-reference CSV, batch 32 x 5, fp32.  Returns the decode kernel's
+    launches."""
+    import pandas as pd
+
+    from clipcap_tpu_torch.eval import base
+    from clipcap_tpu_torch.ops.flash_decode import flash_decode
+
+    folder = workdir / "eval_clips"
+    folder.mkdir()
+    rng = np.random.default_rng(14)
+    for f in clips:
+        shutil.copy(f, folder / f.name)
+    pd.DataFrame([{"file_name": f.name, **{f"ref_{j}": " ".join(rng.choice(AUDIO_WORDS, 6))
+                                           for j in range(1, 6)}} for f in clips]
+                 ).to_csv(workdir / "audio_refs.csv", index=False)
+    argv = ["--model-path", str(ckpt / "clipcap_final.npz"), "--config-path",
+            str(ckpt / "clipcap_config.yaml"), "--sample-path", str(folder), "--reference-csv",
+            str(workdir / "audio_refs.csv"), "--csv-filename-column", "file_name",
+            "--csv-reference-caption-columns", "ref_{1..5}", "--eval-batch-size", str(len(clips)),
+            "--number-to-generate", "5", "--allow-fallback-tokenizer", "--device", str(dev),
+            "--save-predictions", str(workdir / "audio_preds.json"), "--save-file",
+            str(workdir / "audio_scores.json")]
+    flash_decode.launches = 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(), contextlib.redirect_stdout(io.StringIO()):
+        warnings.simplefilter("ignore")
+        rc = base.run_eval(argv)
+    sync(dev)
+    n = flash_decode.launches
+    preds = json.loads((workdir / "audio_preds.json").read_text())
+    scores = json.loads((workdir / "audio_scores.json").read_text())
+    print(f"audio: eval exit {rc} in {time.perf_counter() - t0:.1f} s; {len(preds)} predictions; "
+          f"scores {({k: scores.get(k) for k in EVAL_METRICS})}; flash_decode launches {n}")
+    bad = [k for k in EVAL_METRICS if not isinstance(scores.get(k), (int, float))
+           or not math.isfinite(scores[k])]
+    if rc != 0 or sorted(preds) != sorted(f.name for f in clips) or bad:
+        raise AssertionError(f"audio: eval exit {rc}, {len(preds)} predictions, bad {bad}")
+    return n
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the CLIP ResNet towers (RN50 family)
+# ---------------------------------------------------------------------------
+
+RN_BATCH, RN_DIM, RN64_BATCH, RN_CHECK = 256, 1024, 32, 8
+
+
+def write_rn50_checkpoint(root: Path) -> Path:
+    """Phase 12: a seeded RN50 (both towers) in OpenAI's layout and fp16, as
+    ``clip.load``'s files are."""
+    from clipcap_tpu_torch.convert import clip_from_params
+    from clipcap_tpu_torch.models.clip_vit import get_clip_config, init_clip
+
+    cfg = get_clip_config("RN50")
+    path = root / "RN50.pt"
+    sd = clip_from_params(init_clip(cfg, seed=21), cfg).state_dict()
+    torch.save({k: v.half() for k, v in sd.items()}, path)
+    return path
+
+
+def run_resnet(dev, raw: Path, workdir: Path, tag: str) -> dict:
+    """Phase 12: RN50 through ``$CLIPCAP_CLIP_CHECKPOINT`` (OpenAI layout,
+    so ``clip_config_from_openai``'s RN branch runs): preprocess at batch
+    256 on phase 8's first 256 images (no ``patch_embed`` launch), the fp32
+    tower on the card against the CPU, ``similarity`` (``sdpa_packed`` in
+    the text tower), a beam-5 caption from an RN50-conditioned checkpoint
+    (``flash_decode``); RN50x64 at 448 px, one seeded bf16 batch of 32.
+    Information: RN50 b256 and RN50x64 b32 bf16 embeds/s, a profile of one
+    RN50 batch.  Returns the launches of rows 1, 2 and 5 on this path."""
+    from clipcap_tpu_torch import generate_beam, get_encoder_from_model, load
+    from clipcap_tpu_torch.config import Config, EncoderConfig, save_yaml_config
+    from clipcap_tpu_torch.convert import resnet_from_params
+    from clipcap_tpu_torch.encoders.clip import get_clip_encoder
+    from clipcap_tpu_torch.models.clip_resnet import ModifiedResNet, init_clip_resnet
+    from clipcap_tpu_torch.models.clip_vit import clip_encode_image, get_clip_config
+    from clipcap_tpu_torch.models.clipcap import init_clipcap
+    from clipcap_tpu_torch.models.gpt2 import get_gpt2_config
+    from clipcap_tpu_torch.ops.attention import sdpa_packed
+    from clipcap_tpu_torch.ops.flash_decode import flash_decode
+    from clipcap_tpu_torch.ops.patch_embed import patch_embed
+    from clipcap_tpu_torch.train.checkpoint import save_params
+
+    t_phase = time.perf_counter()
+    ckpt = write_rn50_checkpoint(workdir)
+    part = raw / "rn50"
+    part.mkdir()
+    for i in range(RN_BATCH):
+        for ext in (".jpg", ".txt"):
+            shutil.copy(raw / "files" / f"img_{i:05d}{ext}", part / f"img_{i:05d}{ext}")
+    captions = [(part / f"img_{i:05d}.txt").read_text() for i in range(RN_BATCH)]
+    print(f"resnet: seeded RN50 checkpoint (OpenAI layout, fp16) written in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    launches = {}
+    with mock.patch.dict(os.environ, {"CLIPCAP_CLIP_CHECKPOINT": str(ckpt)}):
+        built = []
+        patch_embed.launches = sdpa_packed.launches = 0
+        preprocess_cli(dev, "RN50", ["--input-dataset", str(part), "--output-folder",
+                                     str(workdir / "out_rn50")],
+                       built, RN_BATCH, variant="RN50", batch=RN_BATCH)
+        launches["preprocess_patch_embed"] = patch_embed.launches
+        check_dataset(workdir / "out_rn50", [captions], "RN50", dim=RN_DIM, variant="RN50")
+        encoder, transform = built[0]
+        if not isinstance(encoder.model.visual, ModifiedResNet) or patch_embed.launches:
+            raise AssertionError(f"resnet: preprocess took the ViT path ({patch_embed.launches} "
+                                 "patch_embed launches)")
+        print(f"resnet: preprocess launched patch_embed {patch_embed.launches} times (gate 0); "
+              f"config {encoder.config.name}")
+
+        # fp32 RN50 on the card against the CPU, 8 images.
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            card, _ = get_clip_encoder("RN50", device=dev, dtype=torch.float32)
+            cpu, _ = get_clip_encoder("RN50", device="cpu", dtype=torch.float32)
+        batch = np.stack([transform(str(part / f"img_{i:05d}.jpg")) for i in range(RN_CHECK)])
+        got, want = card(batch), cpu(batch)
+        err = rel_err(got, want)
+        print(f"resnet: RN50 fp32, {RN_CHECK} images on the card vs the CPU: ‖d‖/‖ref‖ "
+              f"{err:.3g} (gate 1e-3)")
+        if got.shape != (RN_CHECK, RN_DIM) or not np.isfinite(got).all() or not err <= 1e-3:
+            raise AssertionError(f"resnet: card vs CPU {err}")
+
+        # The rerank: similarity launches sdpa_packed in the text tower.
+        sdpa_packed.launches = 0
+        sims = card.similarity(batch[0], ["a photo of noise", "a dog", "static on a screen"])
+        sync(dev)
+        launches["similarity_sdpa_packed"] = sdpa_packed.launches
+        cpu_sims = cpu.similarity(batch[0], ["a photo of noise", "a dog", "static on a screen"])
+        print(f"resnet: RN50 similarity {np.round(sims, 4).tolist()} (CPU max|d| "
+              f"{np.abs(sims - cpu_sims).max():.3g}); sdpa_packed launches "
+              f"{launches['similarity_sdpa_packed']}")
+        if sims.shape != (3,) or not np.isfinite(sims).all() or sdpa_packed.launches == 0:
+            raise AssertionError("resnet: similarity did not launch sdpa_packed")
+        del cpu, built, encoder
+
+        # A short beam-5 caption from an RN50-conditioned checkpoint.
+        config = Config(language_model="gpt2", prefix_length=P, projection_length=P,
+                        transformer_layers=8, transformer_attention_heads=8,
+                        encoder_config=EncoderConfig(encoder_model_name="clip",
+                                                     encoder_model_variant="RN50",
+                                                     encoder_embedding_size=RN_DIM))
+        save_params(str(workdir / "rn50_model.npz"),
+                    init_clipcap(config, lm_config=get_gpt2_config("gpt2"), seed=1).params())
+        save_yaml_config(config, str(workdir / "rn50_config.yaml"))
+        model, tokenizer = load(str(workdir / "rn50_model.npz"),
+                                str(workdir / "rn50_config.yaml"), device=dev)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            encoder, transform = get_encoder_from_model(model)
+        flash_decode.launches = 0
+        prefix = model.transformer_mapper(encoder(batch[:1]))
+        beams = generate_beam(model, tokenizer, prefix, number_to_generate=5, beam_size=K,
+                              entry_length=20)
+        sync(dev)
+        launches["beam_flash_decode"] = flash_decode.launches
+        print(f"resnet: RN50-conditioned beam 5 (20 new tokens): {len(beams)} captions, best "
+              f"{beams[0]!r}; flash_decode launches {flash_decode.launches}")
+        if not isinstance(encoder.model.visual, ModifiedResNet) or flash_decode.launches == 0:
+            raise AssertionError("resnet: the RN50 caption did not launch flash_decode")
+
+        # Information: RN50 b256 bf16 embeds/s and a profile of one batch.
+        visual = copy.deepcopy(card.model.visual).to(torch.bfloat16)
+        del card, model, encoder
+        g = torch.Generator(device=dev).manual_seed(8)
+        inputs = [torch.randint(0, 256, (RN_BATCH, 224, 224, 3), generator=g, device=dev,
+                                dtype=torch.uint8) for _ in range(3)]
+
+        @torch.no_grad()
+        def embed(x):
+            return clip_encode_image(visual, x, dtype=torch.bfloat16)
+
+        per_trial = rate(embed, inputs, RN_BATCH)
+        med = statistics.median(per_trial)
+        print(f"time [{tag}] RN50 b{RN_BATCH} bf16 uint8 224 px: embeds/s per trial "
+              f"{per_trial}; median {med:.1f}")
+        profile(embed, inputs[0], RN_BATCH * 1e3 / med, f"RN50 b{RN_BATCH} bf16", tag, top=10)
+        del visual, inputs
+
+    # RN50x64 at its own 448 px: one seeded bf16 batch of 32.
+    t0 = time.perf_counter()
+    cfg = get_clip_config("RN50x64").vision
+    visual = resnet_from_params(init_clip_resnet(cfg, seed=22), cfg).to(dev, torch.bfloat16)
+    print(f"resnet: seeded RN50x64 tower on the card in {time.perf_counter() - t0:.1f} s")
+    inputs = [torch.randint(0, 256, (RN64_BATCH, cfg.image_size, cfg.image_size, 3),
+                            generator=g, device=dev, dtype=torch.uint8) for _ in range(3)]
+
+    @torch.no_grad()
+    def embed64(x):
+        return clip_encode_image(visual, x, dtype=torch.bfloat16)
+
+    out = embed64(inputs[0])
+    if tuple(out.shape) != (RN64_BATCH, RN_DIM) or not torch.isfinite(out).all():
+        raise AssertionError(f"resnet: RN50x64 b{RN64_BATCH} gave {tuple(out.shape)}")
+    per_trial = rate(embed64, inputs, RN64_BATCH)
+    print(f"resnet: RN50x64 b{RN64_BATCH} bf16 at {cfg.image_size} px: finite "
+          f"[{RN64_BATCH}, {RN_DIM}]")
+    print(f"time [{tag}] RN50x64 b{RN64_BATCH} bf16 uint8 {cfg.image_size} px: embeds/s per "
+          f"trial {per_trial}; median {statistics.median(per_trial):.1f}")
+    del visual, inputs, out
+    print(f"resnet: launches {launches}; phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict) -> list:
-    """Phases 3-10 in ``workdir``; returns the kernels' rows.  Phase 10's
+    """Phases 3-12 in ``workdir``; returns the kernels' rows.  Phase 10's
     paths run beside the phases whose models and data they reuse: 10a
-    after 6, 10c after 8, 10b after 9."""
+    after 6, 10c after 8, 10b after 9; phase 12 reuses phase 8's images."""
     slice_dir, train_dir = workdir / "slice", workdir / "train"
     slice_dir.mkdir()
     train_dir.mkdir()
@@ -2524,7 +3020,6 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
     w8a8_launches = run_w8a8(dev, clip, pre_dir / "raw", pre_dir, file_captions,
                              l14_rates["kernel"], name_limit)
     del clip
-    shutil.rmtree(pre_dir)
     gc.collect()
     torch.cuda.empty_cache()
     print(host_memory())
@@ -2538,6 +3033,18 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
     int8_weight_timings(qlm, xl_prefix, dev, bf16_weights, name_limit)
     del qlm, xl_prefix
     print(host_memory())
+    gc.collect()
+    torch.cuda.empty_cache()
+    audio_dir = workdir / "audio"
+    audio_dir.mkdir()
+    audio_launches = run_audio(dev, audio_dir, name_limit)
+    shutil.rmtree(audio_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(host_memory())
+    rn_launches = run_resnet(dev, pre_dir / "raw", pre_dir, name_limit)
+    shutil.rmtree(pre_dir)
+    print(host_memory())
 
     def row(name, source, replaces, **numbers):
         return {"name": name, "route": "cuda", "source": f"clipcap_tpu_torch/csrc/{source}",
@@ -2547,22 +3054,26 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
         row("flash_decode", "flash_decode.cu", "clipcap_tpu/ops/flash_decode.py:407",
             launches=launches["flash_decode"], max_abs_err=errors["flash_decode"],
             **times["flash_decode"],
-            int8_weights_launches={k: int8w_launches[k] for k in ("xl_fp32_r4", "cli", "eval")}),
+            int8_weights_launches={k: int8w_launches[k] for k in ("xl_fp32_r4", "cli", "eval")},
+            clap_launches={k: audio_launches[k] for k in ("beam", "sampling", "cli", "eval")},
+            rn50_beam_launches=rn_launches["beam_flash_decode"]),
         row("sdpa_packed", "sdpa.cu", "clipcap_tpu/ops/attention.py:244",
             launches=launches["sdpa_packed"], max_abs_err=errors["sdpa_packed"],
             **times["sdpa_packed"], text_b5=times["sdpa_packed_text_b5"],
             vit_l14_b256={"launches": pre_sdpa_launches, **times["sdpa_packed_vit_l14"]},
             vit_l14_336_b256=times["sdpa_packed_vit_l14_336"],
             w8a8_preprocess_launches=w8a8_launches["sdpa_packed"],
-            int8_weights_eval_launches=int8w_launches["eval_sdpa_packed"]),
-        adamw_row,
+            int8_weights_eval_launches=int8w_launches["eval_sdpa_packed"],
+            rn50_similarity_launches=rn_launches["similarity_sdpa_packed"]),
+        dict(adamw_row, clap_train_launches=audio_launches["fused_adamw"]),
         row("flash_decode_int8", "flash_decode.cu", "clipcap_tpu/ops/flash_decode.py:407",
             max_abs_err=errors["flash_decode_int8"], **xl_rows["flash_decode_int8"]),
         row("flash_decode_two_phase", "flash_decode.cu", "clipcap_tpu/ops/flash_decode.py:784",
             max_abs_err=errors["flash_decode_two_phase"], **xl_rows["flash_decode_two_phase"]),
         row("patch_embed", "patch_embed.cu", "clipcap_tpu/ops/patch_embed.py:112",
             max_abs_err=errors["patch_embed"], **patch_row,
-            w8a8_preprocess_launches=w8a8_launches["patch_embed"]),
+            w8a8_preprocess_launches=w8a8_launches["patch_embed"],
+            rn50_preprocess_launches=rn_launches["preprocess_patch_embed"]),
         row("fused_sdpa", "sdpa.cu", "clipcap_tpu/ops/attention.py:75",
             launches=fused_launches, max_abs_err=max(errors["fused_sdpa"], facade_err),
             **times["fused_sdpa"], vit_b32_b512=times["fused_sdpa_vit_b32"]),

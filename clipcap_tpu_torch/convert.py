@@ -4,11 +4,18 @@ The JAX package keeps each model's weights as a nested dict with the layer
 axis stacked first and ``[in, out]`` projection weights; its ``.npz``
 checkpoints are that tree flattened (``train/checkpoint.py``).  The port's
 modules use the original checkpoints' keys and layouts (HF GPT-2, the
-reference mapper, OpenAI CLIP).  Each model has one table of rules,
-``(state-dict key, tree path, layout)``, read in both directions: a key
-with ``{i}`` is one layer of a stacked tree leaf; layout ``"T"`` transposes
-a 2-D weight, ``"conv"`` turns the ``[3·p·p, D]`` patch matrix into the
-``[D, 3, p, p]`` Conv2d weight.
+reference mapper, OpenAI CLIP, laion_clap's HTSAT and RoBERTa).  Each model
+has one table of rules, ``(state-dict key, tree path, layout)``, read in
+both directions: a key with ``{i}`` is one layer of a stacked tree leaf, a
+number in a path an index into a list of the tree; layout ``"T"``
+transposes a 2-D weight, and the conv layouts turn a flattened patch matrix
+``[C·kh·kw, D]`` into the ``[D, C, kh, kw]`` Conv2d weight: ``"conv"`` the
+ViT's (C = 3, p×p), ``"conv1"`` HTSAT's (C = 1, p×p), ``"conv1x3"`` its
+``mel_conv2d`` (C = 1, p×3p), ``"1x1"`` a 1×1 conv.
+
+The ResNet towers keep four tensors per batch norm where the JAX tree keeps
+the folded ``scale``/``bias`` pair, so they convert by hand
+(:func:`resnet_from_params`, :func:`resnet_params`).
 
 The seeded ``init_*`` functions of the port return the same trees (numpy)
 as the JAX package's, so ``*_from_params(init_*(cfg, seed))`` gives both
@@ -28,10 +35,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from clipcap_tpu_torch.models.clip_vit import CLIP, CLIPConfig
+from clipcap_tpu_torch.models.clip_resnet import CLIPResNetConfig, ModifiedResNet, stack_trees
+from clipcap_tpu_torch.models.clip_vit import CLIP, CLIPConfig, is_resnet_config
 from clipcap_tpu_torch.models.gpt2 import GPT2, GPT2Config
+from clipcap_tpu_torch.models.htsat import CLAPAudio, CLAPText, HTSATConfig
 from clipcap_tpu_torch.models.mapper import MapperConfig, TransformerMapper
-from clipcap_tpu_torch.ops.layers import Int8Weight
+from clipcap_tpu_torch.models.roberta import Roberta, RobertaConfig
+from clipcap_tpu_torch.ops.layers import BatchNorm, Int8Weight
 
 Rule = Tuple[str, str, Optional[str]]
 
@@ -43,6 +53,12 @@ def _ln(key: str, path: str) -> List[Rule]:
 def _lin(key: str, path: str, layout: Optional[str], bias: bool = True) -> List[Rule]:
     rules = [(f"{key}.weight", f"{path}/w", layout)]
     return rules + [(f"{key}.bias", f"{path}/b", None)] if bias else rules
+
+
+def _bn(key: str, path: str) -> List[Rule]:
+    return [(f"{key}.{k}", f"{path}/{p}", None) for k, p in
+            (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+             ("running_var", "var"))]
 
 
 GPT2_RULES: List[Rule] = [
@@ -103,27 +119,95 @@ CLIP_TEXT_RULES: List[Rule] = [
 ]
 
 
+ROBERTA_RULES: List[Rule] = [
+    ("embeddings.word_embeddings.weight", "word_embeddings", None),
+    ("embeddings.position_embeddings.weight", "position_embeddings", None),
+    ("embeddings.token_type_embeddings.weight", "token_type_embeddings", None),
+    *_ln("embeddings.LayerNorm", "emb_ln"),
+    *_lin("encoder.layer.{i}.attention.self.query", "layers/q", "T"),
+    *_lin("encoder.layer.{i}.attention.self.key", "layers/k", "T"),
+    *_lin("encoder.layer.{i}.attention.self.value", "layers/v", "T"),
+    *_lin("encoder.layer.{i}.attention.output.dense", "layers/attn_out", "T"),
+    *_ln("encoder.layer.{i}.attention.output.LayerNorm", "layers/attn_ln"),
+    *_lin("encoder.layer.{i}.intermediate.dense", "layers/fc1", "T"),
+    *_lin("encoder.layer.{i}.output.dense", "layers/fc2", "T"),
+    *_ln("encoder.layer.{i}.output.LayerNorm", "layers/out_ln"),
+    *_lin("pooler.dense", "pooler", "T"),
+]
+
+CLAP_TEXT_RULES: List[Rule] = [
+    *[("text_branch." + key, "roberta/" + path, layout) for key, path, layout in ROBERTA_RULES],
+    *_lin("text_projection.0", "projection/fc1", "T"),
+    *_lin("text_projection.2", "projection/fc2", "T"),
+]
+
+
+def _htsat_rules(cfg: HTSATConfig) -> List[Rule]:
+    A = "audio_branch."
+    rules = [
+        *_bn(A + "bn0", "bn0"),
+        *_lin(A + "patch_embed.proj", "patch_embed/proj", "conv1"),
+        *_ln(A + "patch_embed.norm", "patch_embed/norm"),
+        *_ln(A + "norm", "norm"),
+        *_lin("audio_projection.0", "audio_projection/fc1", "T"),
+        *_lin("audio_projection.2", "audio_projection/fc2", "T"),
+    ]
+    if cfg.enable_fusion:
+        rules += _lin(A + "patch_embed.mel_conv2d", "patch_embed/mel_conv2d", "conv1x3")
+        # AFF's Sequentials: local_att [Conv, BN, ReLU, Conv, BN], global_att
+        # [AvgPool, Conv, BN, ReLU, Conv, BN].
+        for branch, (c1, b1, c2, b2) in (("local", "0134"), ("global", "1245")):
+            k, p = f"{A}patch_embed.fusion_model.{branch}_att", f"patch_embed/fusion/{branch}"
+            rules += [*_lin(f"{k}.{c1}", f"{p}/conv1", "1x1"), *_bn(f"{k}.{b1}", f"{p}/bn1"),
+                      *_lin(f"{k}.{c2}", f"{p}/conv2", "1x1"), *_bn(f"{k}.{b2}", f"{p}/bn2")]
+    for s, depth in enumerate(cfg.depths):
+        for j in range(depth):
+            k, p = f"{A}layers.{s}.blocks.{j}", f"stages/{s}/blocks/{j}"
+            rules += [
+                *_ln(f"{k}.norm1", f"{p}/norm1"),
+                *_lin(f"{k}.attn.qkv", f"{p}/attn/qkv", "T"),
+                *_lin(f"{k}.attn.proj", f"{p}/attn/proj", "T"),
+                (f"{k}.attn.relative_position_bias_table", f"{p}/attn/rel_bias", None),
+                *_ln(f"{k}.norm2", f"{p}/norm2"),
+                *_lin(f"{k}.mlp.fc1", f"{p}/mlp/fc1", "T"),
+                *_lin(f"{k}.mlp.fc2", f"{p}/mlp/fc2", "T"),
+            ]
+        if s < len(cfg.depths) - 1:
+            k, p = f"{A}layers.{s}.downsample", f"stages/{s}/downsample"
+            rules += [*_ln(f"{k}.norm", f"{p}/norm"),
+                      *_lin(f"{k}.reduction", f"{p}/reduction", "T", bias=False)]
+    return rules
+
+
+# Conv layouts: the [in channels, kh, kw] of the flattened patch matrix's
+# rows, from its row count n.
+_CONV_SHAPES = {
+    "conv": lambda n: (3, round((n // 3) ** 0.5), round((n // 3) ** 0.5)),
+    "conv1": lambda n: (1, round(n ** 0.5), round(n ** 0.5)),
+    "conv1x3": lambda n: (1, round((n // 3) ** 0.5), 3 * round((n // 3) ** 0.5)),
+    "1x1": lambda n: (n, 1, 1),
+}
+
+
 def _to_module(arr: np.ndarray, layout: Optional[str]) -> np.ndarray:
     if layout == "T":
         return arr.T
-    if layout == "conv":
-        D = arr.shape[1]
-        p = int(round((arr.shape[0] // 3) ** 0.5))
-        return arr.T.reshape(D, 3, p, p)
+    if layout in _CONV_SHAPES:
+        return arr.T.reshape(arr.shape[1], *_CONV_SHAPES[layout](arr.shape[0]))
     return arr
 
 
 def _to_tree(arr: np.ndarray, layout: Optional[str]) -> np.ndarray:
     if layout == "T":
         return arr.T
-    if layout == "conv":
+    if layout in _CONV_SHAPES:
         return arr.reshape(arr.shape[0], -1).T
     return arr
 
 
-def _get(tree: dict, path: str):
+def _get(tree, path: str):
     for part in path.split("/"):
-        tree = tree[part]
+        tree = tree[int(part)] if isinstance(tree, list) else tree[part]
     return tree
 
 
@@ -132,6 +216,16 @@ def _set(tree: dict, path: str, value) -> None:
     for part in parents:
         tree = tree.setdefault(part, {})
     tree[leaf] = value
+
+
+def _listify(tree):
+    """Dicts keyed ``"0"``, ``"1"``, … (numbers in rule paths) → lists."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _listify(v) for k, v in tree.items()}
+    if out and all(k.isdigit() for k in out):
+        return [out[str(i)] for i in range(len(out))]
+    return out
 
 
 Parts = List[Tuple[List[Rule], int]]  # (rules, layer count) per tower
@@ -185,7 +279,7 @@ def tree_from_state_dict(sd: Mapping[str, torch.Tensor], parts: Parts) -> dict:
             else:
                 leaf = np.array(value(key, layout, layers), np.float32, order="C")
             _set(tree, path, leaf)
-    return tree
+    return _listify(tree)
 
 
 def load_params(module: nn.Module, params: dict, parts: Parts) -> nn.Module:
@@ -274,4 +368,151 @@ def mapper_params(model: TransformerMapper) -> dict:
 
 def clip_from_params(params: dict, cfg: CLIPConfig) -> CLIP:
     """A :class:`CLIP` from the JAX tree ``{"visual", "text", "logit_scale"}``."""
+    if is_resnet_config(cfg.vision):
+        model = CLIP(cfg)
+        sd = state_dict_from_tree(params, [(CLIP_TEXT_RULES, cfg.text.layers)])
+        sd.update({"visual." + k: v
+                   for k, v in resnet_state_dict(params["visual"], cfg.vision).items()})
+        model.load_state_dict(sd)
+        _fold_identity(model.visual)
+        return model
     return load_params(CLIP(cfg), params, _clip_parts(cfg))
+
+
+# ---------------------------------------------------------------------------
+# ResNet towers: HWIO convs and folded batch norms in the tree
+# ---------------------------------------------------------------------------
+
+
+def _hwio(w) -> torch.Tensor:
+    """[kh, kw, in, out] → Conv2d's [out, in, kh, kw]."""
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(w, np.float32).transpose(3, 2, 0, 1)))
+
+
+def _resnet_block_sd(p: dict, key: str) -> Dict[str, torch.Tensor]:
+    convs = [("conv1", "conv1", "bn1", "bn1"), ("conv2", "conv2", "bn2", "bn2"),
+             ("conv3", "conv3", "bn3", "bn3")]
+    if "downsample" in p:
+        convs.append(("downsample/conv", "downsample.0", "downsample/bn", "downsample.1"))
+    sd = {}
+    for conv, conv_key, bn, bn_key in convs:
+        sd[f"{key}.{conv_key}.weight"] = _hwio(_get(p, conv)["w"])
+        scale, bias = (np.asarray(_get(p, bn)[k], np.float32) for k in ("scale", "bias"))
+        sd[f"{key}.{bn_key}.weight"] = torch.from_numpy(scale.copy())
+        sd[f"{key}.{bn_key}.bias"] = torch.from_numpy(bias.copy())
+        sd[f"{key}.{bn_key}.running_mean"] = torch.zeros(len(scale))
+        sd[f"{key}.{bn_key}.running_var"] = torch.ones(len(scale))
+    return sd
+
+
+def resnet_state_dict(params: dict, cfg: CLIPResNetConfig) -> Dict[str, torch.Tensor]:
+    """The ResNet tree (``init_clip_resnet``'s) as a :class:`ModifiedResNet`
+    state dict: each folded ``scale``/``bias`` as ``weight``/``bias`` over a
+    zero mean and unit variance, for a module whose norms have ``eps = 0``
+    (:func:`resnet_from_params`), so ``x·scale + bias`` is exact."""
+    sd = _resnet_block_sd(params["stem"], "")
+    sd = {k[1:]: v for k, v in sd.items()}                     # the stem has no prefix
+    for s, stage in enumerate(params["stages"]):
+        sd.update(_resnet_block_sd(stage["block0"], f"layer{s + 1}.0"))
+        for i in range(cfg.layers[s] - 1):
+            block = _index(stage["tail"], i)
+            sd.update(_resnet_block_sd(block, f"layer{s + 1}.{i + 1}"))
+    pool = params["attnpool"]
+    sd["attnpool.positional_embedding"] = torch.from_numpy(
+        np.array(pool["positional_embedding"], np.float32))
+    for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        sd[f"attnpool.{name}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(pool[name]["w"], np.float32).T))
+        sd[f"attnpool.{name}.bias"] = torch.from_numpy(np.array(pool[name]["b"], np.float32))
+    return sd
+
+
+def _index(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _fold_identity(model: nn.Module) -> None:
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.eps = 0.0
+
+
+def resnet_from_params(params: dict, cfg: CLIPResNetConfig) -> ModifiedResNet:
+    """A :class:`ModifiedResNet` from the JAX tree; its batch norms compute
+    the tree's ``x·scale + bias`` exactly (``eps = 0`` over unit variance),
+    not through a round trip ``running_var = 1 - eps``."""
+    model = ModifiedResNet(cfg)
+    model.load_state_dict(resnet_state_dict(params, cfg))
+    _fold_identity(model)
+    return model
+
+
+def _resnet_block_tree(block) -> dict:
+    def conv(c):
+        return {"w": np.ascontiguousarray(c.weight.detach().float().cpu().numpy()
+                                          .transpose(2, 3, 1, 0))}
+
+    def bn(b: BatchNorm):
+        scale, shift = b.folded()
+        return {"scale": scale.cpu().numpy(), "bias": shift.cpu().numpy()}
+
+    p = {"conv1": conv(block.conv1), "bn1": bn(block.bn1), "conv2": conv(block.conv2),
+         "bn2": bn(block.bn2), "conv3": conv(block.conv3), "bn3": bn(block.bn3)}
+    if hasattr(block, "downsample"):
+        p["downsample"] = {"conv": conv(block.downsample["0"]), "bn": bn(block.downsample["1"])}
+    return p
+
+
+def resnet_params(model: ModifiedResNet) -> dict:
+    """The JAX tree (numpy fp32) of a :class:`ModifiedResNet`: HWIO convs,
+    each batch norm folded in fp64 as the JAX importer folds it."""
+    stages = []
+    for blocks in model.stages():
+        tail = [_resnet_block_tree(b) for b in blocks[1:]]
+        stages.append({"block0": _resnet_block_tree(blocks[0]),
+                       "tail": stack_trees(tail) if tail else None})
+    pool = model.attnpool
+
+    def lin(m):
+        return {"w": m.weight.detach().float().cpu().numpy().T.copy(),
+                "b": m.bias.detach().float().cpu().numpy()}
+
+    return {
+        "stem": _resnet_block_tree(model),
+        "stages": stages,
+        "attnpool": {"positional_embedding": pool.positional_embedding.detach().float()
+                     .cpu().numpy(),
+                     "q_proj": lin(pool.q_proj), "k_proj": lin(pool.k_proj),
+                     "v_proj": lin(pool.v_proj), "c_proj": lin(pool.c_proj)},
+    }
+
+
+# ---------------------------------------------------------------------------
+# CLAP: HTSAT (audio half) and RoBERTa + projection (text half)
+# ---------------------------------------------------------------------------
+
+
+def htsat_from_params(params: dict, cfg: HTSATConfig) -> CLAPAudio:
+    """A :class:`CLAPAudio` from ``init_htsat``'s tree (fusion tensors
+    included where ``cfg.enable_fusion``)."""
+    return load_params(CLAPAudio(cfg), params, [(_htsat_rules(cfg), 1)])
+
+
+def htsat_params(model: CLAPAudio) -> dict:
+    return module_params(model, [(_htsat_rules(model.config), 1)])
+
+
+def roberta_params(model: Roberta) -> dict:
+    return module_params(model, [(ROBERTA_RULES, model.config.num_layers)])
+
+
+def clap_text_from_params(text_params: dict, cfg: RobertaConfig) -> CLAPText:
+    """A :class:`CLAPText` from the JAX text tree ``{"roberta", "projection"}``."""
+    embed_dim = np.shape(text_params["projection"]["fc1"]["w"])[1]
+    return load_params(CLAPText(cfg, embed_dim), text_params, [(CLAP_TEXT_RULES, cfg.num_layers)])
+
+
+def clap_text_params(model: CLAPText) -> dict:
+    return module_params(model, [(CLAP_TEXT_RULES, model.config.num_layers)])

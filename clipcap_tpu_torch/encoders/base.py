@@ -2,8 +2,8 @@
 
 Counterpart of ``clipcap_tpu/encoders/base.py``.  The encoder is callable
 on a batch of transformed samples and returns numpy embeddings; the
-transform maps a file path / BytesIO to one sample array.  Only CLIP ViT
-encoders are ported (``int8``: the w8a8 image tower); CLAP raises.
+transform maps a file path / BytesIO to one sample array: CLIP (ViT and
+RN towers; ``int8``: the w8a8 ViT image tower) and CLAP (HTSAT audio).
 """
 from __future__ import annotations
 
@@ -27,7 +27,14 @@ def get_encoder(encoder_model_name: str, encoder_model_variant: str,
                                 normalize_embeddings=normalize_embeddings,
                                 checkpoint_path=checkpoint_path, device=device, int8=int8)
     if encoder_model_name == "clap":
-        raise NotImplementedError("the CLAP encoder is not ported yet (ROADMAP.md, queue A)")
+        if int8:
+            raise ValueError(
+                "--int8-encoder is CLIP-only (HTSAT's head_dim-24 Swin "
+                "blocks don't take the w8a8 path)")
+        from clipcap_tpu_torch.encoders.clap import get_clap_encoder
+
+        return get_clap_encoder(encoder_model_variant, normalize_embeddings=normalize_embeddings,
+                                checkpoint_path=checkpoint_path, device=device)
     raise ValueError(f"invalid encoder name: '{encoder_model_name}'")
 
 

@@ -1,8 +1,9 @@
 """CLIP image encoder: host-side PIL transform + batched forward on the device.
 
 Counterpart of ``clipcap_tpu/encoders/clip.py``.  The host decodes and
-resizes/crops to fixed-shape uint8 HWC arrays; the device does the rest
-(uint8 → float, normalisation folded into the patch weights, ViT).
+resizes/crops to fixed-shape uint8 HWC arrays at the variant's own size
+(224 to 448); the device does the rest (uint8 → float, normalisation, the
+ViT or the ModifiedResNet).
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ import numpy as np
 import torch
 
 from clipcap_tpu_torch.models.clip_vit import (CLIP, CLIPConfig, clip_encode_image,
-                                               clip_encode_text, clip_similarity, load_clip)
+                                               clip_encode_text, clip_similarity,
+                                               is_resnet_config, load_clip)
 from clipcap_tpu_torch.utils.device import resolve_device
 
 
@@ -108,6 +110,10 @@ class CLIPEncoder:
             # once here, the activations per row at each projection.
             from clipcap_tpu_torch.ops.quant import quantize_clip_visual_int8
 
+            if is_resnet_config(config.vision):
+                raise ValueError("int8 serving is CLIP-ViT-only (RN towers are conv-bound; the "
+                                 "w8a8 projection path does not apply)")
+
             model = quantize_clip_visual_int8(model)
         self.model = model
         self.config = config
@@ -161,8 +167,9 @@ def get_clip_encoder(encoder_model_variant: str, window_size: Optional[int] = No
                      window_overlap_percentage: float = 0.0,
                      checkpoint_path: Optional[str] = None, device="cuda",
                      dtype=torch.bfloat16, int8: bool = False) -> Tuple[Callable, Callable]:
-    """``(encoder, transform)`` for a CLIP ViT variant on ``device`` (a CUDA
-    device raises when CUDA is absent); ``int8``: the w8a8 image tower."""
+    """``(encoder, transform)`` for a CLIP variant (ViT or RN) on ``device``
+    (a CUDA device raises when CUDA is absent); ``int8``: the w8a8 ViT
+    image tower."""
     model, config = load_clip(encoder_model_variant, checkpoint_path,
                               device=resolve_device(device))
     transform = CLIPTransform(n_px=config.vision.image_size,

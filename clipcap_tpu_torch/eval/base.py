@@ -104,8 +104,8 @@ def generate_predictions(args: Namespace) -> dict:
             lengths=result.lengths[i * n_gen:(i + 1) * n_gen])) for i in range(len(names))]
 
         # Batched rerank: one text-tower pass for every candidate, cosine
-        # against the sample embeddings already computed (the port's
-        # encoders are CLIP's, which have the text tower).
+        # against the sample embeddings already computed (both of the port's
+        # encoders, CLIP and CLAP, have a text tower).
         text = encode_method.encode_text([c for caps in all_caps for c in caps])
         feats = np.asarray(features, dtype=np.float32)
         if feats.ndim == 3:              # windowed embeddings: rerank on the global view

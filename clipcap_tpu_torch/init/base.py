@@ -9,8 +9,9 @@ where the port reads it:
   ``utils/clip_tokenizer`` read it);
 * GPT-2 tokenizer files → ``~/.cache/clipcap_tpu_torch/gpt2/`` (point
   ``$CLIPCAP_TOKENIZER_PATH`` at it);
-* RoBERTa tokenizer files → ``~/.cache/clipcap_tpu_torch/roberta/`` (for
-  the CLAP text tower once it is ported);
+* RoBERTa tokenizer files → ``~/.cache/clipcap_tpu_torch/roberta/`` (point
+  ``$CLIPCAP_ROBERTA_TOKENIZER`` at it: ``utils/roberta_tokenizer`` reads
+  them for the CLAP text tower's rerank);
 * the METEOR paraphrase table and ``meteor-1.5.jar``, whose function-word
   list and WordNet synonym tables are extracted → the METEOR scorer's
   cache (``eval.meteor.CACHE_DIR``).

@@ -1,7 +1,8 @@
 """OpenAI CLIP in PyTorch: ViT image tower + causal text tower.
 
-Counterpart of ``clipcap_tpu/models/clip_vit.py`` for the ViT presets.
-:class:`CLIP` holds the weights under OpenAI checkpoint keys
+Counterpart of ``clipcap_tpu/models/clip_vit.py``: the ViT presets, and
+the RN presets, whose image tower is ``models/clip_resnet.py``'s
+ModifiedResNet.  :class:`CLIP` holds the weights under OpenAI checkpoint keys
 (``visual.conv1.weight``, ``visual.transformer.resblocks.{i}.attn.in_proj_weight``,
 ``transformer.resblocks.{i}…``, ``text_projection``, ``logit_scale`` …), so
 ``clipcap_tpu.models.clip_vit.clip_params_from_openai`` reads its state
@@ -19,12 +20,15 @@ from __future__ import annotations
 import dataclasses
 import os
 import warnings
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from clipcap_tpu_torch.models.clip_resnet import (CLIPResNetConfig, ModifiedResNet,
+                                                  clip_encode_image_resnet, init_clip_resnet,
+                                                  resnet_config_from_openai)
 from clipcap_tpu_torch.ops.attention import sdpa_packed
 from clipcap_tpu_torch.ops.layers import (LayerNorm, Linear, empty_param, in_out, linear,
                                           normal_init, ones_init, quick_gelu, zeros_init)
@@ -69,7 +73,7 @@ class CLIPTextConfig:
 @dataclasses.dataclass(frozen=True)
 class CLIPConfig:
     name: str
-    vision: CLIPVisionConfig
+    vision: Union[CLIPVisionConfig, CLIPResNetConfig]
     text: CLIPTextConfig
 
 
@@ -99,14 +103,46 @@ CLIP_PRESETS: Dict[str, CLIPConfig] = {
 }
 
 
+def _preset_rn(name, *, image_size, width, layers, embed, twidth, tlayers,
+               theads) -> CLIPConfig:
+    return CLIPConfig(
+        name=name,
+        vision=CLIPResNetConfig(image_size=image_size, width=width, layers=layers,
+                                heads=width * 32 // 64, embed_dim=embed),
+        text=CLIPTextConfig(width=twidth, layers=tlayers, heads=theads, embed_dim=embed),
+    )
+
+
+# The ModifiedResNet family ``clip.load`` also serves.
+RN_PRESETS: Dict[str, CLIPConfig] = {
+    "RN50": _preset_rn("RN50", image_size=224, width=64, layers=(3, 4, 6, 3), embed=1024,
+                       twidth=512, tlayers=12, theads=8),
+    "RN101": _preset_rn("RN101", image_size=224, width=64, layers=(3, 4, 23, 3), embed=512,
+                        twidth=512, tlayers=12, theads=8),
+    "RN50x4": _preset_rn("RN50x4", image_size=288, width=80, layers=(4, 6, 10, 6), embed=640,
+                         twidth=640, tlayers=12, theads=10),
+    "RN50x16": _preset_rn("RN50x16", image_size=384, width=96, layers=(6, 8, 18, 8),
+                          embed=768, twidth=768, tlayers=12, theads=12),
+    "RN50x64": _preset_rn("RN50x64", image_size=448, width=128, layers=(3, 15, 36, 10),
+                          embed=1024, twidth=1024, tlayers=12, theads=16),
+    # Test-scale RN preset (not an OpenAI model).
+    "test-tiny-rn": _preset_rn("test-tiny-rn", image_size=64, width=8, layers=(1, 1, 1, 1),
+                               embed=32, twidth=64, tlayers=2, theads=4),
+}
+
+
+def is_resnet_config(vision_cfg) -> bool:
+    return isinstance(vision_cfg, CLIPResNetConfig)
+
+
 def get_clip_config(variant: str) -> CLIPConfig:
     variant = variant.replace("_", "/")
     if variant in CLIP_PRESETS:
         return CLIP_PRESETS[variant]
-    if variant.startswith(("RN", "test-tiny-rn")):
-        raise NotImplementedError(f"CLIP '{variant}': the ResNet towers are not ported "
-                                  "yet (ROADMAP.md, queue A)")
-    raise ValueError(f"unknown CLIP variant '{variant}'. Known: {sorted(CLIP_PRESETS)}")
+    if variant in RN_PRESETS:
+        return RN_PRESETS[variant]
+    raise ValueError(f"unknown CLIP variant '{variant}'. "
+                     f"Known: {sorted(CLIP_PRESETS) + sorted(RN_PRESETS)}")
 
 
 # ---------------------------------------------------------------------------
@@ -160,8 +196,9 @@ def init_clip_text(cfg: CLIPTextConfig, seed: int = 1) -> dict:
 
 def init_clip(cfg: CLIPConfig, seed: int = 0) -> dict:
     """The same draws as ``clipcap_tpu.models.clip_vit.init_clip``."""
+    init_visual = init_clip_resnet if is_resnet_config(cfg.vision) else init_clip_vision
     return {
-        "visual": init_clip_vision(cfg.vision, seed),
+        "visual": init_visual(cfg.vision, seed),
         "text": init_clip_text(cfg.text, seed + 1),
         "logit_scale": np.asarray(np.log(1.0 / 0.07), np.float32),
     }
@@ -222,7 +259,8 @@ class CLIP(nn.Module):
         super().__init__()
         self.config = cfg
         t = cfg.text
-        self.visual = VisionTransformer(cfg.vision)
+        self.visual = (ModifiedResNet(cfg.vision) if is_resnet_config(cfg.vision)
+                       else VisionTransformer(cfg.vision))
         self.token_embedding = nn.Module()
         self.token_embedding.weight = empty_param(t.vocab_size, t.width)
         self.positional_embedding = empty_param(t.context_length, t.width)
@@ -280,7 +318,7 @@ def _clip_block_cls(x: Tensor, block: _ResidualBlock, heads: int,
     return _finish_block(x[:, :1], a, block, int8_acts)[:, 0]
 
 
-def clip_encode_image(visual: VisionTransformer, images: Tensor, *,
+def clip_encode_image(visual: Union[VisionTransformer, ModifiedResNet], images: Tensor, *,
                       dtype=torch.float32, normalize_pixels: bool = True,
                       int8_acts: bool = False) -> Tensor:
     """ViT forward → [B, embed_dim] (``model.encode_image``).  ``images``:
@@ -292,7 +330,16 @@ def clip_encode_image(visual: VisionTransformer, images: Tensor, *,
     ``int8_acts`` runs the block projections as w8a8 products
     (``ops.quant.int8_linear``); the blocks must then hold the int8 weights
     of ``ops.quant.quantize_clip_visual_int8``.  Attention, layer norms,
-    the patch embedding and the final projection stay in ``dtype``."""
+    the patch embedding and the final projection stay in ``dtype``.
+
+    A ModifiedResNet (the RN presets) runs ``clip_resnet``'s forward;
+    int8 serving is ViT-only."""
+    if isinstance(visual, ModifiedResNet):
+        if int8_acts:
+            raise ValueError("int8 serving is CLIP-ViT-only (RN towers are conv-bound; the "
+                             "w8a8 projection path does not apply)")
+        return clip_encode_image_resnet(visual, images, dtype=dtype,
+                                        normalize_pixels=normalize_pixels)
     cfg = visual.config
     D, p = cfg.width, cfg.patch_size
     w32 = visual.conv1.weight.float().reshape(D, -1).t()        # [3·p·p, D]
@@ -364,28 +411,32 @@ def clip_similarity(clip: CLIP, images: Tensor, tokens: Tensor, *,
 
 
 def clip_config_from_openai(sd) -> CLIPConfig:
-    """A ViT config inferred from an OpenAI state dict's shapes."""
-    if "visual.attnpool.positional_embedding" in sd:
-        raise NotImplementedError("ResNet CLIP checkpoints are not ported yet "
-                                  "(ROADMAP.md, queue A)")
-    conv = sd["visual.conv1.weight"]
-    vwidth, patch = conv.shape[0], conv.shape[-1]
-    grid = int(round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5))
-
+    """The config of an OpenAI state dict, from its shapes; RN checkpoints
+    are known by their attention-pool keys."""
     def n_layers(prefix, index):
         return len({k.split(".")[index] for k in sd if k.startswith(prefix)})
 
-    embed = sd["text_projection"].shape[1]
     twidth = sd["ln_final.weight"].shape[0]
+
+    def text(embed):
+        return CLIPTextConfig(vocab_size=sd["token_embedding.weight"].shape[0],
+                              context_length=sd["positional_embedding"].shape[0],
+                              width=twidth, layers=n_layers("transformer.resblocks.", 2),
+                              heads=twidth // 64, embed_dim=embed)
+
+    if "visual.attnpool.positional_embedding" in sd:
+        rn = resnet_config_from_openai(sd)
+        return CLIPConfig(name=f"RN-{rn.width}x{rn.layers}", vision=rn, text=text(rn.embed_dim))
+    conv = sd["visual.conv1.weight"]
+    vwidth, patch = conv.shape[0], conv.shape[-1]
+    grid = int(round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5))
+    embed = sd["text_projection"].shape[1]
     return CLIPConfig(
         name=f"ViT-{vwidth}/{patch}",
         vision=CLIPVisionConfig(image_size=grid * patch, patch_size=patch, width=vwidth,
                                 layers=n_layers("visual.transformer.resblocks.", 3),
                                 heads=vwidth // 64, embed_dim=embed),
-        text=CLIPTextConfig(vocab_size=sd["token_embedding.weight"].shape[0],
-                            context_length=sd["positional_embedding"].shape[0],
-                            width=twidth, layers=n_layers("transformer.resblocks.", 2),
-                            heads=twidth // 64, embed_dim=embed),
+        text=text(embed),
     )
 
 

@@ -145,6 +145,39 @@ class Linear(nn.Module):
         return linear(x, in_out(self.weight), self.bias)
 
 
+class Conv(nn.Module):
+    """A ``Conv2d``'s weights: ``weight`` [out, in, kh, kw] and ``bias``."""
+
+    def __init__(self, cin: int, cout: int, kh: int, kw: int, bias: bool = True):
+        super().__init__()
+        self.weight = empty_param(cout, cin, kh, kw)
+        self.bias = empty_param(cout) if bias else None
+
+
+class BatchNorm(nn.Module):
+    """An inference-mode ``BatchNorm2d``'s four tensors under its keys
+    (``weight``, ``bias``, ``running_mean``, ``running_var``)."""
+
+    def __init__(self, n: int, eps: float = 1e-5):
+        super().__init__()
+        self.weight = empty_param(n)
+        self.bias = empty_param(n)
+        self.register_buffer("running_mean", torch.empty(n))
+        self.register_buffer("running_var", torch.empty(n))
+        self.eps = eps
+
+    def forward(self, x: Tensor) -> Tensor:
+        """Channel-last ``x``: ``(x - mean) · rsqrt(var + eps) · weight + bias``."""
+        return ((x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+                * self.weight + self.bias)
+
+    def folded(self):
+        """``(scale, shift)`` in fp32, folded in fp64: ``x·scale + shift``
+        is the batch norm (the JAX package's import-time fold)."""
+        scale = self.weight.double() * torch.rsqrt(self.running_var.double() + self.eps)
+        return scale.float(), (self.bias.double() - self.running_mean.double() * scale).float()
+
+
 def in_out(weight) -> Tensor:
     """A ``[out, in]`` weight (``Linear`` layout) as ``linear`` takes it:
     transposed, or an :class:`Int8Weight` as it is (it knows its layout)."""

@@ -303,11 +303,22 @@ def test_corrupt_image_and_bad_caption_warn_and_continue(tmp_path):
 
 
 def test_what_is_not_ported_raises(tmp_path):
+    """CLAP is ported: ``--encoder-model-name clap`` on a WAV runs (its
+    numbers are held to the JAX package in tests/test_torch_clap.py); the
+    card stays the default device."""
+    import wave
+
     data = _files_dataset(tmp_path / "raw", n=1)
+    with wave.open(str(tmp_path / "raw" / "sample_000.wav"), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(np.zeros(8000, "<i2").tobytes())
     argv = ["--input-dataset", data, "--output-folder", str(tmp_path / "out"),
             "--encoder-model-variant", "test-tiny"]
-    with pytest.raises(NotImplementedError, match="CLAP"):
-        preprocess(_port_args([*argv, "--device", "cpu", "--encoder-model-name", "clap"]))
+    assert preprocess(_port_args([*argv, "--device", "cpu", "--encoder-model-name", "clap",
+                                  "--media-file-extensions", "wav"])) == 0
+    assert np.load(tmp_path / "out" / "embeddings" / "embeds_0.npy").shape == (1, 16)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             start_preprocess(argv)                   # --device cuda, the default

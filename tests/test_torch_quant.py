@@ -299,7 +299,7 @@ def test_int8_encoder_reranks_through_the_w8a8_path(tiny_clip, monkeypatch):
     built, _ = get_encoder("clip", "test-tiny", device="cpu", int8=True)
     assert built.int8 and isinstance(built.model.visual.transformer.resblocks[1].mlp.c_fc.weight,
                                      Int8Weight)
-    with pytest.raises(NotImplementedError, match="CLAP"):
+    with pytest.raises(ValueError, match="CLIP-only"):
         get_encoder("clap", "HTSAT-tiny", device="cpu", int8=True)
 
 
