@@ -1,0 +1,11 @@
+"""Idle share of the device in a embed unit: 1 − device busy time (the union
+of the profiled unit's device operations) ÷ the unit's time in the
+unprofiled window."""
+from portbench.readers import idle_pct
+
+LAYER = "device"
+MOVES = "embeds_per_s"
+
+
+def read(ctx):
+    return idle_pct(ctx, "embed")
