@@ -18,6 +18,7 @@ from clipcap_tpu_torch.models.clip_vit import (CLIP, CLIPConfig, clip_encode_ima
                                                clip_encode_text, clip_similarity,
                                                is_resnet_config, load_clip)
 from clipcap_tpu_torch.utils.device import resolve_device
+from clipcap_tpu_torch.utils.profiling import annotate
 
 
 def _resize(image, size: Tuple[int, int]):
@@ -129,13 +130,17 @@ class CLIPEncoder:
 
     @torch.no_grad()
     def __call__(self, batch) -> np.ndarray:
-        x = torch.tensor(np.asarray(batch), device=self.device)
+        with annotate("encoder.h2d"):
+            x = torch.tensor(np.asarray(batch), device=self.device)
         lead = x.shape[:-3]
-        out = clip_encode_image(self.model.visual, x.reshape((-1,) + x.shape[-3:]),
-                                dtype=self.dtype, int8_acts=self.int8)
-        if self.normalize_embeddings:
-            out = out / out.norm(dim=-1, keepdim=True)
-        return out.float().reshape(*lead, -1).cpu().numpy()
+        with annotate("encoder.tower"):
+            out = clip_encode_image(self.model.visual, x.reshape((-1,) + x.shape[-3:]),
+                                    dtype=self.dtype, int8_acts=self.int8)
+            if self.normalize_embeddings:
+                out = out / out.norm(dim=-1, keepdim=True)
+            out = out.float().reshape(*lead, -1)
+        with annotate("encoder.d2h"):
+            return out.cpu().numpy()
 
     def _tokens(self, captions) -> torch.Tensor:
         from clipcap_tpu_torch.utils.clip_tokenizer import tokenize

@@ -38,6 +38,7 @@ import torch
 from clipcap_tpu_torch.models.gpt2 import (GPT2, consolidate_kv_cache, gpt2_apply,
                                            gpt2_embed_tokens, init_kv_cache, init_shared_kv,
                                            lm_logits)
+from clipcap_tpu_torch.utils.profiling import annotate
 
 Tensor = torch.Tensor
 
@@ -82,36 +83,37 @@ def beam_search_batched(lm: GPT2, prefix_embeds: Tensor, bp: BeamParams,
     pe = prefix_embeds.to(dtype)
     cache_kw = dict(dtype=dtype, beam_size=K, int8=bp.int8_kv, device=dev)
 
-    shared = None
-    if C > 0:
-        # Prefill-to-shared: the prefix runs once per sample straight into
-        # the shared cache (slot t = position t); the live beam cache holds
-        # the N generated positions from slot 0.
-        shared = init_shared_kv(lm.config, R, P + N, dtype=dtype, int8=bp.int8_kv, device=dev)
-        hidden0, shared = gpt2_apply(lm, inputs_embeds=pe, kv_cache=shared, cache_index=0,
-                                     dtype=dtype, return_logits=False)
-        cache = init_kv_cache(lm.config, B, N, tile_major=False, **cache_kw)
-        h_last = hidden0[:, -1]
-        anc_len, base = N, P
-    elif bp.fold_prefix:
-        # The prefix K/V is identical across beams: one beam_size-free
-        # prefill writes it once, into slots [0, P) of the beam cache.
-        cache = init_kv_cache(lm.config, B, N, prefix_slots=P, tile_major=bp.tile_major,
-                              **cache_kw)
-        hidden0, cache = gpt2_apply(lm, inputs_embeds=pe, kv_cache=cache, cache_index=0,
-                                    dtype=dtype, return_logits=False)
-        h_last = hidden0[:, -1]
-        anc_len, base = N, P
-    else:
-        cache = init_kv_cache(lm.config, B, P + N, tile_major=bp.tile_major, **cache_kw)
-        hidden0, cache = gpt2_apply(lm, inputs_embeds=pe.repeat_interleave(K, dim=0),
-                                    kv_cache=cache, cache_index=0, dtype=dtype,
-                                    beam_size=K, return_logits=False)
-        h_last = hidden0.reshape(R, K, P, -1)[:, 0, -1]
-        anc_len, base = P + N, 0
-    logp0 = torch.log_softmax(lm_logits(lm, h_last).float() / t, dim=-1)   # [R, V]
-    V = logp0.shape[-1]
-    scores, first = torch.topk(logp0, K, dim=-1)                          # [R, K]
+    with annotate("beam.prefill"):
+        shared = None
+        if C > 0:
+            # Prefill-to-shared: the prefix runs once per sample straight into
+            # the shared cache (slot t = position t); the live beam cache holds
+            # the N generated positions from slot 0.
+            shared = init_shared_kv(lm.config, R, P + N, dtype=dtype, int8=bp.int8_kv, device=dev)
+            hidden0, shared = gpt2_apply(lm, inputs_embeds=pe, kv_cache=shared, cache_index=0,
+                                         dtype=dtype, return_logits=False)
+            cache = init_kv_cache(lm.config, B, N, tile_major=False, **cache_kw)
+            h_last = hidden0[:, -1]
+            anc_len, base = N, P
+        elif bp.fold_prefix:
+            # The prefix K/V is identical across beams: one beam_size-free
+            # prefill writes it once, into slots [0, P) of the beam cache.
+            cache = init_kv_cache(lm.config, B, N, prefix_slots=P, tile_major=bp.tile_major,
+                                  **cache_kw)
+            hidden0, cache = gpt2_apply(lm, inputs_embeds=pe, kv_cache=cache, cache_index=0,
+                                        dtype=dtype, return_logits=False)
+            h_last = hidden0[:, -1]
+            anc_len, base = N, P
+        else:
+            cache = init_kv_cache(lm.config, B, P + N, tile_major=bp.tile_major, **cache_kw)
+            hidden0, cache = gpt2_apply(lm, inputs_embeds=pe.repeat_interleave(K, dim=0),
+                                        kv_cache=cache, cache_index=0, dtype=dtype,
+                                        beam_size=K, return_logits=False)
+            h_last = hidden0.reshape(R, K, P, -1)[:, 0, -1]
+            anc_len, base = P + N, 0
+        logp0 = torch.log_softmax(lm_logits(lm, h_last).float() / t, dim=-1)   # [R, V]
+        V = logp0.shape[-1]
+        scores, first = torch.topk(logp0, K, dim=-1)                          # [R, K]
 
     tokens = torch.full((R, K, N), bp.pad_token, dtype=torch.long, device=dev)
     tokens[:, :, 0] = first
@@ -129,58 +131,69 @@ def beam_search_batched(lm: GPT2, prefix_embeds: Tensor, bp: BeamParams,
         t_iota = torch.arange(N + 1, device=dev)[None, :]
 
     for step in range(1, N):
-        if bool(stopped.all()):
+        _counters.host_syncs += 1
+        with annotate("beam.stop_check"):
+            stopped_all = bool(stopped.all())
+        if stopped_all:
             break
-        if C > 0 and (step - 1) % C == 0:
-            # Every C steps: the leading run of written positions on which
-            # all K beams' ancestry agrees moves to the shared cache.  The
-            # False sentinel column makes argmin land past a row that agrees
-            # everywhere.
-            anc3 = ancestry.reshape(R, K, N)
-            rows0 = anc3[:, 0]                                        # [R, N]
-            conv = torch.cat([(anc3 == rows0[:, None]).all(dim=1),
-                              torch.zeros((R, 1), dtype=torch.bool, device=dev)], dim=1)
-            conv &= t_iota < step - 1                     # written positions only
-            c = torch.maximum(c, P + torch.argmin(conv.to(torch.uint8), dim=1).to(torch.int32))
-            rows = torch.nn.functional.pad(rows0, (0, shared_slots - P - N))
-            consolidate_kv_cache(cache, shared, rows, K, base=P)
-        # Forward the tokens chosen at step-1 (position P + step - 1); each
-        # beam writes its own row, so its ancestry there is its own row.
-        pos = P + step - 1
-        ancestry[:, pos - base] = own_row
-        emb = gpt2_embed_tokens(lm, tokens[:, :, step - 1].reshape(B, 1), dtype)
-        step_logits, cache = gpt2_apply(lm, inputs_embeds=emb, kv_cache=cache,
-                                        cache_index=pos, dtype=dtype, beam_size=K,
-                                        ancestry=ancestry, cache_base=base, shared_kv=shared,
-                                        shared_len=c if C > 0 else None)
-        # Within a beam row, avg order == logit order, so every joint top-K
-        # winner is in its row's top K: rank only those K·K candidates.
-        l = step_logits[:, 0]                                             # [B, V]
-        top_l, top_v = torch.topk(l, K, dim=-1)
-        lse = torch.logsumexp(l.float() / t, dim=-1)
-        logp_cand = (top_l.float() / t - lse[:, None]).reshape(R, K, K)
-        cand_ids = top_v.reshape(R, K, K)
-        # Stopped beams: only token 0 with additive score 0.
-        logp_cand = torch.where(stopped[:, :, None], frozen, logp_cand)
-        cand_ids = torch.where(stopped[:, :, None], filler, cand_ids)
+        _counters.decode_steps += 1
+        with annotate("beam.step"):
+            if C > 0 and (step - 1) % C == 0:
+                # Every C steps: the leading run of written positions on which
+                # all K beams' ancestry agrees moves to the shared cache.  The
+                # False sentinel column makes argmin land past a row that agrees
+                # everywhere.
+                anc3 = ancestry.reshape(R, K, N)
+                rows0 = anc3[:, 0]                                        # [R, N]
+                conv = torch.cat([(anc3 == rows0[:, None]).all(dim=1),
+                                  torch.zeros((R, 1), dtype=torch.bool, device=dev)], dim=1)
+                conv &= t_iota < step - 1                     # written positions only
+                c = torch.maximum(c, P + torch.argmin(conv.to(torch.uint8), dim=1).to(torch.int32))
+                rows = torch.nn.functional.pad(rows0, (0, shared_slots - P - N))
+                consolidate_kv_cache(cache, shared, rows, K, base=P)
+            # Forward the tokens chosen at step-1 (position P + step - 1); each
+            # beam writes its own row, so its ancestry there is its own row.
+            pos = P + step - 1
+            ancestry[:, pos - base] = own_row
+            emb = gpt2_embed_tokens(lm, tokens[:, :, step - 1].reshape(B, 1), dtype)
+            step_logits, cache = gpt2_apply(lm, inputs_embeds=emb, kv_cache=cache,
+                                            cache_index=pos, dtype=dtype, beam_size=K,
+                                            ancestry=ancestry, cache_base=base, shared_kv=shared,
+                                            shared_len=c if C > 0 else None)
+            with annotate("beam.rank"):
+                # Within a beam row, avg order == logit order, so every joint top-K
+                # winner is in its row's top K: rank only those K·K candidates.
+                l = step_logits[:, 0]                                             # [B, V]
+                top_l, top_v = torch.topk(l, K, dim=-1)
+                lse = torch.logsumexp(l.float() / t, dim=-1)
+                logp_cand = (top_l.float() / t - lse[:, None]).reshape(R, K, K)
+                cand_ids = top_v.reshape(R, K, K)
+                # Stopped beams: only token 0 with additive score 0.
+                logp_cand = torch.where(stopped[:, :, None], frozen, logp_cand)
+                cand_ids = torch.where(stopped[:, :, None], filler, cand_ids)
 
-        seq_lengths = seq_lengths + (~stopped).float()
-        avg = (scores[:, :, None] + logp_cand) / seq_lengths[:, :, None]
-        top_avg, flat_idx = _rank(avg.reshape(R, K * K),
-                                  (beam_ids + cand_ids).reshape(R, K * K), K)
-        src = flat_idx // V                                               # [R, K]
-        next_tok = flat_idx % V
+                seq_lengths = seq_lengths + (~stopped).float()
+                avg = (scores[:, :, None] + logp_cand) / seq_lengths[:, :, None]
+                top_avg, flat_idx = _rank(avg.reshape(R, K * K),
+                                          (beam_ids + cand_ids).reshape(R, K * K), K)
+                src = flat_idx // V                                               # [R, K]
+                next_tok = flat_idx % V
 
-        tokens = tokens.gather(1, src[:, :, None].expand(R, K, N))
-        tokens[:, :, step] = next_tok
-        seq_lengths = seq_lengths.gather(1, src)
-        stopped = stopped.gather(1, src)
-        scores = top_avg * seq_lengths
-        ancestry = ancestry.reshape(R, K, anc_len).gather(
-            1, src[:, :, None].expand(R, K, anc_len)).reshape(B, anc_len)
-        stopped = stopped | (next_tok == bp.stop_token)
+                tokens = tokens.gather(1, src[:, :, None].expand(R, K, N))
+                tokens[:, :, step] = next_tok
+                seq_lengths = seq_lengths.gather(1, src)
+                stopped = stopped.gather(1, src)
+                scores = top_avg * seq_lengths
+                ancestry = ancestry.reshape(R, K, anc_len).gather(
+                    1, src[:, :, None].expand(R, K, anc_len)).reshape(B, anc_len)
+                stopped = stopped | (next_tok == bp.stop_token)
 
     return BeamResult(tokens=tokens, seq_lengths=seq_lengths, scores=scores / seq_lengths)
+
+
+beam_search_batched.decode_steps = 0   # decode steps that ran a forward
+beam_search_batched.host_syncs = 0     # blocking device-to-host reads in the decode loop
+_counters = beam_search_batched        # the counters' owner, whatever rebinds the name
 
 
 def beam_search(lm: GPT2, prefix_embeds: Tensor, bp: BeamParams,

@@ -55,6 +55,7 @@ from clipcap_tpu_torch.ops.flash_decode import (INT8_SLOT_QUANTUM, _pick_u_tile,
 from clipcap_tpu_torch.ops.layers import (ACTIVATIONS, Conv1D, LayerNorm, embed,
                                           empty_param, normal_init, ones_init,
                                           round_up, zeros_init)
+from clipcap_tpu_torch.utils.profiling import annotate
 
 Tensor = torch.Tensor
 # One layer's cache: the interleaved K|V buffer, or (int8 rows, k-scales,
@@ -580,16 +581,18 @@ def gpt2_apply(model: GPT2, *, input_ids: Optional[Tensor] = None,
             mask = beam_mask(ancestry, beam_size, slots, offset, cache_base,
                              shared_len if shared_kv is not None else None)
         shared_layers = [None] * cfg.n_layer if step is None else shared_kv
-        for layer, ckv, sh in zip(model.h, kv_cache, shared_layers):
-            x = _cached_block(x, layer, ckv, cache_index, None if mask is not None else bias,
-                              cfg, beam_size=beam_size, ancestry=mask,
-                              cache_base=cache_base, shared=sh, shared_step=step)
+        with annotate("gpt2.blocks"):
+            for layer, ckv, sh in zip(model.h, kv_cache, shared_layers):
+                x = _cached_block(x, layer, ckv, cache_index, None if mask is not None else bias,
+                                  cfg, beam_size=beam_size, ancestry=mask,
+                                  cache_base=cache_base, shared=sh, shared_step=step)
     else:
-        for layer in model.h:
-            if remat:
-                x = checkpoint(_block, x, layer, bias, cfg, use_reentrant=False)
-            else:
-                x = _block(x, layer, bias, cfg)
+        with annotate("gpt2.blocks"):
+            for layer in model.h:
+                if remat:
+                    x = checkpoint(_block, x, layer, bias, cfg, use_reentrant=False)
+                else:
+                    x = _block(x, layer, bias, cfg)
 
     x = model.ln_f(x)
     return (lm_logits(model, x) if return_logits else x), kv_cache
@@ -602,4 +605,5 @@ def gpt2_embed_tokens(model: GPT2, token_ids: Tensor, dtype=torch.float32) -> Te
 
 def lm_logits(model: GPT2, hidden: Tensor) -> Tensor:
     """Project hidden states onto the vocabulary (the tied LM head)."""
-    return hidden @ model.wte.weight.to(hidden.dtype).t()
+    with annotate("gpt2.lm_head"):
+        return hidden @ model.wte.weight.to(hidden.dtype).t()

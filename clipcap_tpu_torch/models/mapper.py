@@ -19,6 +19,7 @@ from torch import nn
 
 from clipcap_tpu_torch.ops.layers import (LayerNorm, Linear, empty_param, normal_init,
                                           ones_init, relu, torch_linear_init, zeros_init)
+from clipcap_tpu_torch.utils.profiling import annotate
 
 Tensor = torch.Tensor
 
@@ -160,18 +161,19 @@ def mapper_apply(mapper: TransformerMapper, embedding, *, dtype=torch.float32) -
     device) to ``[B, prefix_length, lm_dim]`` prefix embeddings."""
     cfg = mapper.config
     D = cfg.lm_embedding_size
-    emb = torch.as_tensor(embedding, device=mapper.prefix_const.device).to(dtype)
-    B = emb.shape[0]
-    # The windowed projection applies the same linear to each window;
-    # windows are contiguous in the flattened token axis.
-    x = mapper.linear(emb).reshape(B, cfg.n_proj_tokens, D)
-    if mapper.pos_embeddings is not None:
-        x = x + mapper.pos_embeddings.to(dtype)[None]
-    prefix = mapper.prefix_const.to(dtype)[None].expand(B, -1, -1)
-    x = torch.cat([x, prefix], dim=1)
-    for layer in mapper.transformer.layers:
-        x = _mapper_block(x, layer, cfg)
-    return x[:, cfg.n_proj_tokens:]
+    with annotate("mapper"):
+        emb = torch.as_tensor(embedding, device=mapper.prefix_const.device).to(dtype)
+        B = emb.shape[0]
+        # The windowed projection applies the same linear to each window;
+        # windows are contiguous in the flattened token axis.
+        x = mapper.linear(emb).reshape(B, cfg.n_proj_tokens, D)
+        if mapper.pos_embeddings is not None:
+            x = x + mapper.pos_embeddings.to(dtype)[None]
+        prefix = mapper.prefix_const.to(dtype)[None].expand(B, -1, -1)
+        x = torch.cat([x, prefix], dim=1)
+        for layer in mapper.transformer.layers:
+            x = _mapper_block(x, layer, cfg)
+        return x[:, cfg.n_proj_tokens:]
 
 
 def mapper_from_torch(state_dict, cfg: MapperConfig,

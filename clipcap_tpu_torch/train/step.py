@@ -12,6 +12,7 @@ import torch
 
 from clipcap_tpu_torch.models.clipcap import clipcap_loss
 from clipcap_tpu_torch.train.state import AdamW, TrainState
+from clipcap_tpu_torch.utils.profiling import annotate
 
 Tensor = torch.Tensor
 
@@ -23,8 +24,11 @@ def train_step(state: TrainState, tokens: Tensor, embeddings: Tensor, *, tx: Ada
     reading it syncs)."""
     named = dict(state.model.named_parameters())
     params = [named[name] for name in state.opt_state.mu]     # the moments' order
-    loss = clipcap_loss(state.model, tokens, embeddings, dtype=dtype, remat=remat)
-    grads = torch.autograd.grad(loss, params)
-    tx.update_(params, grads, state.opt_state)
+    with annotate("train.forward"):
+        loss = clipcap_loss(state.model, tokens, embeddings, dtype=dtype, remat=remat)
+    with annotate("train.backward"):
+        grads = torch.autograd.grad(loss, params)
+    with annotate("train.optimizer"):
+        tx.update_(params, grads, state.opt_state)
     state.step += 1
     return loss.detach()

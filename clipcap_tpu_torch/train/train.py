@@ -13,6 +13,7 @@ Several devices, several processes and tensor parallelism raise
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from argparse import ArgumentDefaultsHelpFormatter, ArgumentParser, Namespace
@@ -29,6 +30,7 @@ from clipcap_tpu_torch.train.checkpoint import CheckpointSaver, restore_train_st
 from clipcap_tpu_torch.train.dataloader import get_dataloader
 from clipcap_tpu_torch.train.state import create_train_state, make_optimizer
 from clipcap_tpu_torch.train.step import train_step
+from clipcap_tpu_torch.utils.profiling import annotate, trace
 
 PROFILE_STEPS = range(2, 5)    # steps traced by --profile-dir (step 1 warms up)
 
@@ -77,14 +79,6 @@ def _check_one_process(args: Namespace) -> None:
     if int(args.mesh_model or 0) > 1:
         raise NotImplementedError(f"--mesh-model {args.mesh_model}: tensor parallelism is "
                                   "not ported yet (ROADMAP.md A9)")
-
-
-def _stop_profile(prof, logdir: str) -> None:
-    prof.stop()
-    os.makedirs(logdir, exist_ok=True)
-    path = os.path.join(logdir, "trace.json")
-    prof.export_chrome_trace(path)
-    print(f"profile: {path}")
 
 
 def train(args: Namespace) -> int:
@@ -139,29 +133,34 @@ def train(args: Namespace) -> int:
         except Exception as e:  # not installed, or offline: train without it
             print(f"wandb disabled ({e})")
 
-    prof = None
-    t0 = time.time()
+    profile = contextlib.ExitStack()    # the --profile-dir trace while it records
+    t_mark, seen_mark = time.time(), 0
     seen = 0
     for epoch in range(args.epochs):
-        for tokens, embeds in dataloader:
+        batches = iter(dataloader)
+        while True:
             if args.profile_dir and state.step + 1 == PROFILE_STEPS.start:
-                from torch.profiler import ProfilerActivity, profile
-
-                activities = [ProfilerActivity.CPU]
-                if device.type == "cuda":
-                    activities.append(ProfilerActivity.CUDA)
-                prof = profile(activities=activities)
-                prof.start()
+                profile.callback(print, "profile: " + os.path.join(args.profile_dir,
+                                                                   "trace.json"))
+                profile.enter_context(trace(args.profile_dir))
+            with annotate("train.data_wait"):
+                batch = next(batches, None)
+            if batch is None:
+                break
+            tokens, embeds = batch
             tokens = torch.from_numpy(tokens).to(device)
             embeds = torch.from_numpy(embeds).to(device)
             loss = train_step(state, tokens, embeds, tx=tx, dtype=compute_dtype, remat=remat)
             seen += tokens.shape[0]
-            if prof is not None and state.step == PROFILE_STEPS.stop - 1:
-                _stop_profile(prof, args.profile_dir)
-                prof = None
+            if state.step == PROFILE_STEPS.stop - 1:
+                profile.close()
             if state.step % args.logging_frequency == 0:
                 value = float(loss)
-                rate = seen / max(time.time() - t0, 1e-9)
+                # The rate since the last line: reading the loss waited for
+                # the device, and step 1's warm-up stays in the first line.
+                now = time.time()
+                rate = (seen - seen_mark) / max(now - t_mark, 1e-9)
+                t_mark, seen_mark = now, seen
                 print(f"epoch {epoch} step {state.step} loss {value:.4f} "
                       f"({rate:.1f} samples/s)")
                 if logger is not None:
@@ -170,8 +169,7 @@ def train(args: Namespace) -> int:
         saved = saver.on_epoch_end(epoch, state, tx)
         if saved:
             print(f"checkpoint: {saved}")
-    if prof is not None:
-        _stop_profile(prof, args.profile_dir)
+    profile.close()
 
     final = saver.save_final_checkpoint(state, tx)
     print(f"final checkpoint: {final}")

@@ -2,50 +2,71 @@
 on ``torch.profiler``.
 
 * ``trace(logdir)`` — a ``torch.profiler`` trace (CPU, and CUDA where
-  present) written into ``logdir`` as a Chrome/TensorBoard trace; a no-op
-  when ``logdir`` is falsy.
-* ``annotate(name)`` — a named region on the profiler's timeline
-  (``record_function``), and an NVTX range when CUDA is present.
+  present) of the block, written as the Chrome trace ``<logdir>/trace.json``;
+  a no-op when ``logdir`` is falsy.
+* ``annotate(name)`` — the program's span: a ``record_function`` range on
+  the timeline of whatever profiler is recording (``torch.profiler``,
+  ``trace`` above, or ``torch.autograd.profiler.emit_nvtx``, under which it
+  is also the NVTX range), and nothing at all while none is.
 * ``timed(fn, *args)`` / ``Timer`` — wall-clock timing; ``timed``
   synchronises the card before the clock stops when the result holds a
   CUDA tensor (launches return before the device has run them).
+  ``Timer.section`` opens a span of the section's name too.
+
+The spans on the main paths (each a layer boundary; nested ones inside):
+
+* ``encoder.h2d`` / ``encoder.tower`` / ``encoder.d2h`` —
+  ``encoders/clip.py::CLIPEncoder``: the images' copy to the device, the
+  tower, the embeddings' copy back;
+* ``mapper`` — ``models/mapper.py::mapper_apply``;
+* ``beam.prefill``, then per loop iteration ``beam.stop_check`` (the one
+  blocking read of a step) and ``beam.step`` (a step that runs a forward)
+  holding ``beam.rank`` — ``inference/beam.py::beam_search_batched``;
+* ``gpt2.blocks`` (the layer loop) and ``gpt2.lm_head`` (every product
+  with the tied head) — ``models/gpt2.py``;
+* ``train.data_wait`` / ``train.forward`` / ``train.backward`` /
+  ``train.optimizer`` — ``train/train.py`` and ``train/step.py``.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Any, Callable, Iterator, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 @contextlib.contextmanager
 def trace(logdir: Optional[str]) -> Iterator[None]:
-    """torch.profiler trace into ``logdir``; no-op when logdir is falsy."""
+    """torch.profiler trace of the block into ``<logdir>/trace.json``;
+    no-op when logdir is falsy."""
     if not logdir:
         yield
         return
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+    from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)):
+    with profile(activities=activities) as prof:
         yield
+    os.makedirs(logdir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named trace region (profiler timeline, and NVTX on CUDA)."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+_OFF = contextlib.nullcontext()
+
+
+def annotate(name: str):
+    """The span ``name``: a ``record_function`` range while a profiler
+    records, else a shared no-op context (no profiler op dispatched, no
+    NVTX range pushed).  The flag is a module global that every profiler
+    sets on entry, so it is read through its module on each call."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 def _sync(result: Any) -> None:
@@ -94,7 +115,8 @@ class Timer:
     def section(self, name: str) -> Iterator[None]:
         t0 = time.perf_counter()
         try:
-            yield
+            with annotate(name):
+                yield
         finally:
             dt = time.perf_counter() - t0
             self.totals[name] = self.totals.get(name, 0.0) + dt
