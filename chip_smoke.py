@@ -1170,8 +1170,10 @@ def profile(work, x, batch_ms: float, label: str, tag: str, top: int = 8):
         work(x)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # A span's device range (``annotate``) spans its kernels: count the kernels only.
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
+               if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
+               and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(device_us(e) for e in kernels) / 1e3
     if busy_ms == 0:
         print(f"profile [{tag}] {label}: wall {wall_ms:.1f} ms; device time not measured "
@@ -3117,6 +3119,9 @@ def main() -> int:
     if "jax" in sys.modules or any(n.split(".")[0] == "clipcap_tpu" for n in sys.modules):
         raise AssertionError("the port loaded jax or the JAX package")
 
+    from clipcap_tpu_torch.inference.beam import beam_search_batched as beam
+    print(f"decode graphs: {beam.graph_steps} of {beam.decode_steps} beam decode steps "
+          f"replayed them, {beam.graph_captures} captured them")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(name_limit)

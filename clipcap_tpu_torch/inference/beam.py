@@ -27,6 +27,11 @@ converged length c, a device vector); decode attention then reads the
 shared region ``[0, c)`` and the live beam slots past c in one kernel
 pass.  The duplicate slots it skips weighed exactly 0, so the tokens equal
 C = 0's up to fp summation order.
+
+On the card each decode step's GPT-2 blocks replay CUDA graphs over their
+dense segments (``models/gpt2.py::decode_step_graphs``), captured by the
+first step of each key; the counters ``graph_steps`` and
+``graph_captures`` count the steps that replayed and that captured.
 """
 from __future__ import annotations
 
@@ -35,9 +40,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from clipcap_tpu_torch.models.gpt2 import (GPT2, consolidate_kv_cache, gpt2_apply,
-                                           gpt2_embed_tokens, init_kv_cache, init_shared_kv,
-                                           lm_logits)
+from clipcap_tpu_torch.models.gpt2 import (GPT2, consolidate_kv_cache, decode_step_graphs,
+                                           gpt2_apply, gpt2_embed_tokens, init_kv_cache,
+                                           init_shared_kv, lm_logits)
 from clipcap_tpu_torch.utils.profiling import annotate
 
 Tensor = torch.Tensor
@@ -130,6 +135,10 @@ def beam_search_batched(lm: GPT2, prefix_embeds: Tensor, bp: BeamParams,
         shared_slots = shared[0][0].shape[2] if bp.int8_kv else shared[0].shape[2]
         t_iota = torch.arange(N + 1, device=dev)[None, :]
 
+    # On the card the steps' dense segments replay CUDA graphs, captured by
+    # the first step of a key (rows, beam size, dtype, device).
+    graphs = decode_step_graphs(lm, B, K, dtype, dev)
+
     for step in range(1, N):
         _counters.host_syncs += 1
         with annotate("beam.stop_check"):
@@ -156,10 +165,15 @@ def beam_search_batched(lm: GPT2, prefix_embeds: Tensor, bp: BeamParams,
             pos = P + step - 1
             ancestry[:, pos - base] = own_row
             emb = gpt2_embed_tokens(lm, tokens[:, :, step - 1].reshape(B, 1), dtype)
+            replay = graphs is not None and graphs.ready
             step_logits, cache = gpt2_apply(lm, inputs_embeds=emb, kv_cache=cache,
                                             cache_index=pos, dtype=dtype, beam_size=K,
                                             ancestry=ancestry, cache_base=base, shared_kv=shared,
-                                            shared_len=c if C > 0 else None)
+                                            shared_len=c if C > 0 else None, graphs=graphs)
+            if replay:
+                _counters.graph_steps += 1
+            elif graphs is not None:
+                _counters.graph_captures += 1
             with annotate("beam.rank"):
                 # Within a beam row, avg order == logit order, so every joint top-K
                 # winner is in its row's top K: rank only those K·K candidates.
@@ -193,6 +207,8 @@ def beam_search_batched(lm: GPT2, prefix_embeds: Tensor, bp: BeamParams,
 
 beam_search_batched.decode_steps = 0   # decode steps that ran a forward
 beam_search_batched.host_syncs = 0     # blocking device-to-host reads in the decode loop
+beam_search_batched.graph_steps = 0    # decode steps whose blocks replayed CUDA graphs
+beam_search_batched.graph_captures = 0  # decode steps that captured them
 _counters = beam_search_batched        # the counters' owner, whatever rebinds the name
 
 

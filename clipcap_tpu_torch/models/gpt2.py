@@ -18,6 +18,10 @@ dict.  The forward is :func:`gpt2_apply`, as in the JAX package:
   reorder is an ancestry mask over the slots — the cache never moves.
   With ``cache_base`` P the first P slots hold the prefix once, visible to
   every beam (the folded-prefix layout, ``init_kv_cache(prefix_slots=P)``).
+  A beam decode step runs as L + 1 dense segments split at the layers'
+  decode attentions; on the card they replay CUDA graphs
+  (:func:`decode_step_graphs`), while the cache writes and the attention
+  run eagerly between them.
 * tile-major caches (``init_kv_cache(tile_major=True)``, or env
   ``CLIPCAP_CACHE_TILE_MAJOR=1``): the same bf16/fp32 cache stored as
   ``[rows, slots // u, n_head, u, 2·head_dim]`` with the JAX package's
@@ -40,6 +44,8 @@ dict.  The forward is :func:`gpt2_apply`, as in the JAX package:
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import math
 import os
@@ -179,6 +185,7 @@ class GPT2(nn.Module):
         self.wpe.weight = empty_param(cfg.n_positions, cfg.n_embd)
         self.h = nn.ModuleList(_Block(cfg) for _ in range(cfg.n_layer))
         self.ln_f = LayerNorm(cfg.n_embd, cfg.layer_norm_epsilon)
+        self.decode_graphs = DecodeGraphs()     # beam decode's CUDA graphs, by key
 
 
 # ---------------------------------------------------------------------------
@@ -364,6 +371,26 @@ def _mlp(x: Tensor, layer: _Block, cfg: GPT2Config) -> Tensor:
     return x + layer.mlp.c_proj(ACTIVATIONS[cfg.activation](h))
 
 
+def _block_out(x: Tensor, attn_out: Tensor, layer: _Block, cfg: GPT2Config) -> Tensor:
+    """The rest of a block after its attention: ``c_proj``, the residual
+    add, then the MLP and its residual add."""
+    return _mlp(x + layer.attn.c_proj(attn_out), layer, cfg)
+
+
+def _beam_qkv(x: Tensor, layer: _Block, cfg: GPT2Config, K: int):
+    """``ln_1``, ``c_attn`` and the beam split of a block's input [B, S, D]
+    → ``(qg, kg, vg)`` [R, H, K, S, Dh] and the K|V rows [R, H, S·K, 2·Dh]
+    in time-major slot order (positions of all K rows of a sample are one
+    contiguous slot range)."""
+    B, S, _ = x.shape
+    H, Dh = cfg.n_head, cfg.head_dim
+    R = B // K
+    qg, kg, vg = (t.reshape(R, K, S, H, Dh).permute(0, 3, 1, 2, 4)
+                  for t in _split_qkv(layer.attn.c_attn(layer.ln_1(x)), cfg))
+    new_flat = torch.cat([kg, vg], -1).transpose(2, 3).reshape(R, H, S * K, 2 * Dh)
+    return qg, kg, vg, new_flat
+
+
 def _decode_attend(q: Tensor, ckv: LayerCache, mask: Tensor, u_valid: int) -> Tensor:
     """Single-token attention over the written cache slots, through the
     kernel wrapper (the kernel on the card, its twin on the CPU)."""
@@ -382,29 +409,22 @@ class _SharedStep(NamedTuple):
 
 def _cached_block(x: Tensor, layer: _Block, ckv: LayerCache, cache_index: int,
                   bias: Optional[Tensor], cfg: GPT2Config,
-                  beam_size: Optional[int] = None,
-                  ancestry: Optional[Tensor] = None,
-                  cache_base: int = 0, shared: Optional[LayerCache] = None,
-                  shared_step: Optional[_SharedStep] = None) -> Tensor:
-    """One block in cached (prefill/decode) mode; writes ``ckv`` in place.
+                  beam_size: Optional[int] = None, cache_base: int = 0) -> Tensor:
+    """One block in cached mode outside beam decode; writes ``ckv`` in place.
 
     Prefill (S > 1) attends within the block only (the zero-filled cache
-    is never read), so it assumes ``cache_index == 0``.  Decode (S == 1)
-    attends over the written slots ``[0, u_valid)``.  In beam mode
-    ``ancestry`` is the per-step ``[R, K, slots]`` selection mask built by
-    :func:`gpt2_apply`; with ``shared`` (this layer's consolidated cache)
-    the live buffer starts at slot 0 with position ``cache_base`` and the
-    step attends over both regions in one softmax."""
+    is never read), so it assumes ``cache_index == 0``.  Plain decode
+    (S == 1) attends over the written slots ``[0, cache_index]``.  With
+    ``beam_size`` it is the prefill of the replicated beam layout,
+    block-local per (row, head, beam); beam decode steps run
+    :func:`_beam_decode_blocks`."""
     B, S, D = x.shape
     H, Dh = cfg.n_head, cfg.head_dim
     scale = 1.0 / math.sqrt(Dh)
 
-    q, k, v = _split_qkv(layer.attn.c_attn(layer.ln_1(x)), cfg)
-
     if beam_size is None:
-        q = q.reshape(B, S, H, Dh).transpose(1, 2)          # [B, H, S, Dh]
-        k = k.reshape(B, S, H, Dh).transpose(1, 2)
-        v = v.reshape(B, S, H, Dh).transpose(1, 2)
+        q, k, v = (t.reshape(B, S, H, Dh).transpose(1, 2)          # [B, H, S, Dh]
+                   for t in _split_qkv(layer.attn.c_attn(layer.ln_1(x)), cfg))
         _write_kv(ckv, torch.cat([k, v], dim=-1), cache_index)
         if S > 1:
             attn = _softmax_attend(q, k, v, None if bias is None else bias[..., :S], scale)
@@ -412,43 +432,196 @@ def _cached_block(x: Tensor, layer: _Block, ckv: LayerCache, cache_index: int,
             attn = _decode_attend(q, ckv, bias[:, 0], cache_index + 1)
         attn_out = attn.transpose(1, 2).reshape(B, S, D)
     else:
-        K = beam_size
-        R = B // K
-        qg = q.reshape(R, K, S, H, Dh).permute(0, 3, 1, 2, 4)   # [R, H, K, S, Dh]
-        kg = k.reshape(R, K, S, H, Dh).permute(0, 3, 1, 2, 4)
-        vg = v.reshape(R, K, S, H, Dh).permute(0, 3, 1, 2, 4)
-        # Time-major slots: positions [cache_index, cache_index + S) of all K
-        # rows are one contiguous slot range, past the folded prefix (none
-        # when the prefix lives in the shared cache).
-        new_flat = torch.cat([kg, vg], -1).transpose(2, 3).reshape(R, H, S * K, 2 * Dh)
-        live_index = cache_index - cache_base
-        base_slot = 0 if shared is not None else cache_base
-        _write_kv(ckv, new_flat, base_slot + live_index * K)
-        if ancestry is None:
-            # Prefill of the replicated layout: block-local per (r, h, k).
-            attn = _softmax_attend(qg, kg, vg, None if bias is None else bias[0, 0, :, :S],
-                                   scale)                        # [R, H, K, S, Dh]
-            attn_out = attn.permute(0, 2, 3, 1, 4).reshape(B, S, D)
-        else:
-            if S != 1:
-                raise ValueError("beam decode takes one token per step")
-            q1 = qg[:, :, :, 0].contiguous()
-            if shared is None:
-                attn = _decode_attend(q1, ckv, ancestry, base_slot + (live_index + 1) * K)
-            else:
-                if _split_cache(ckv)[0].dim() == 5:
-                    raise ValueError("a tile-major cache does not take the consolidated "
-                                     "shared-prefix form (beam search pins it strided)")
-                skv, s_scales = _split_cache(shared)
-                lkv, l_scales = _split_cache(ckv)
-                attn = flash_decode_two_phase(
-                    q1, skv, shared_step.mask, lkv, ancestry, sh_valid=shared_step.sh_valid,
-                    lv_lo=shared_step.lv_lo, lv_valid=(live_index + 1) * K,
-                    shared_scales=s_scales, live_scales=l_scales)
-            attn_out = attn.transpose(1, 2).reshape(B, S, D)
+        qg, kg, vg, new_flat = _beam_qkv(x, layer, cfg, beam_size)
+        _write_kv(ckv, new_flat, cache_base + (cache_index - cache_base) * beam_size)
+        attn = _softmax_attend(qg, kg, vg, None if bias is None else bias[0, 0, :, :S],
+                               scale)                        # [R, H, K, S, Dh]
+        attn_out = attn.permute(0, 2, 3, 1, 4).reshape(B, S, D)
+    return _block_out(x, attn_out, layer, cfg)
 
-    x = x + layer.attn.c_proj(attn_out)
-    return _mlp(x, layer, cfg)
+
+# ---------------------------------------------------------------------------
+# Beam decode steps: dense segments between the decode attentions
+# ---------------------------------------------------------------------------
+#
+# A beam decode step (S = 1 with ancestry) of an L-layer model splits at
+# each layer's decode attention into L + 1 dense segments:
+#
+#   segment 0      ln_1, c_attn and the split of block 0;
+#   segment i      the rest of block i - 1 from its attention output (c_proj,
+#                  residual, ln_2, c_fc, gelu, c_proj, residual), then the
+#                  start of block i as segment 0;
+#   segment L      the rest of the last block, then ln_f.
+#
+# Between two segments the cache write and the decode attention run eagerly
+# on the step's host ints (slot, bounds), so every cache form (strided,
+# tile-major, int8, consolidated) shares the segments.  On the card the
+# segments replay CUDA graphs (:class:`StepGraphs`): the host then dispatches
+# a few eager ops a layer instead of every op of a block.
+
+
+def _decode_segment(model: "GPT2", i: int, x: Tensor, attn: Optional[Tensor], K: int):
+    """Segment ``i`` of a beam decode step → ``(x, q1, kv_rows)``: the
+    residual stream [B, 1, D] entering block i, its queries [R, H, K, Dh]
+    and its K|V rows [R, H, K, 2·Dh]; for i = L, ``(hidden, None, None)``
+    after ``ln_f``.  ``attn`` [R, H, K, Dh] is block i - 1's attention
+    output (None for i = 0)."""
+    cfg = model.config
+    if i > 0:
+        B, _, D = x.shape
+        x = _block_out(x, attn.transpose(1, 2).reshape(B, 1, D), model.h[i - 1], cfg)
+    if i == cfg.n_layer:
+        return model.ln_f(x), None, None
+    qg, _, _, kv_rows = _beam_qkv(x, model.h[i], cfg, K)
+    return x, qg[:, :, :, 0].contiguous(), kv_rows
+
+
+def _beam_decode_blocks(model: "GPT2", x: Tensor, kv_cache: List[LayerCache], mask: Tensor,
+                        cache_index: int, K: int, cache_base: int,
+                        shared_kv: Optional[List[LayerCache]], step: Optional[_SharedStep],
+                        graphs: Optional["StepGraphs"]) -> Tensor:
+    """The blocks and ``ln_f`` of one beam decode step → the final hidden
+    state [B, 1, D].  Segments replay ``graphs`` where given, else run
+    eagerly; each layer's cache write and decode attention run eagerly
+    between them.  ``mask`` is :func:`beam_mask`'s; with ``shared_kv`` the
+    live cache starts at slot 0 and ``step`` holds the shared region's
+    mask and bounds."""
+    if graphs is None:
+        def segment(i, x, attn):
+            return _decode_segment(model, i, x, attn, K)
+    else:
+        def segment(i, x, attn):
+            return graphs.run(model, i, x, attn, K)
+    slot = (0 if shared_kv is not None else cache_base) + (cache_index - cache_base) * K
+    x, q1, kv_rows = segment(0, x, None)
+    for i, ckv in enumerate(kv_cache):
+        _write_kv(ckv, kv_rows, slot)
+        if shared_kv is None:
+            attn = _decode_attend(q1, ckv, mask, slot + K)
+        else:
+            lkv, l_scales = _split_cache(ckv)
+            if lkv.dim() == 5:
+                raise ValueError("a tile-major cache does not take the consolidated "
+                                 "shared-prefix form (beam search pins it strided)")
+            skv, s_scales = _split_cache(shared_kv[i])
+            attn = flash_decode_two_phase(
+                q1, skv, step.mask, lkv, mask, sh_valid=step.sh_valid, lv_lo=step.lv_lo,
+                lv_valid=slot + K, shared_scales=s_scales, live_scales=l_scales)
+        x, q1, kv_rows = segment(i + 1, x, attn)
+    return x
+
+
+class StepGraphs:
+    """The L + 1 segments of a beam decode step as CUDA graphs, for one key
+    (rows, beam size, dtype, device) of one model.
+
+    The first step captures them in replay order into one memory pool, each
+    after a warm-up run on the capture stream, and replays each right after
+    its capture; later steps replay them.  A segment reads the previous
+    segment's static outputs and the static attention input, into which
+    :meth:`run` copies each layer's attention output; segment 0 reads the
+    static copy of the step's input.  A segment's outputs stay valid until
+    the next segment of the pool replays, so one decode step runs at a time
+    per key.  A capture cut short is taken again from segment 0."""
+
+    def __init__(self, segments: int):
+        self.segments = segments
+        self.graphs: List[torch.cuda.CUDAGraph] = []
+        self.outs: List[tuple] = []
+        self.x = self.attn = self.pool = self.stream = None
+
+    @property
+    def ready(self) -> bool:
+        """Whether every segment is captured (a step replays only)."""
+        return len(self.graphs) == self.segments
+
+    def run(self, model: "GPT2", i: int, x: Tensor, attn: Optional[Tensor], K: int):
+        """Segment ``i`` on ``x`` (segment 0) or ``attn`` (the others; ``x``
+        is then the previous segment's static output) → its static outputs."""
+        if i == 0:
+            if not self.ready:
+                self.graphs, self.outs = [], []
+            if self.x is None:
+                self.x = torch.empty_like(x)
+            self.x.copy_(x)
+            args = (self.x, None)
+        else:
+            if self.attn is None:
+                self.attn = torch.empty_like(attn)
+            self.attn.copy_(attn)
+            args = (self.outs[i - 1][0], self.attn)
+        if i < len(self.graphs):
+            self.graphs[i].replay()
+        else:
+            self._capture(lambda: _decode_segment(model, i, *args, K))
+        return self.outs[i]
+
+    def _capture(self, fn) -> None:
+        main = torch.cuda.current_stream()
+        if self.stream is None:
+            self.stream = torch.cuda.Stream()
+            self.pool = torch.cuda.graph_pool_handle()
+        self.stream.wait_stream(main)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self.stream):
+            fn()                                            # warm-up on the capture stream
+            graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+            try:
+                out = fn()
+            finally:
+                graph.capture_end()
+        main.wait_stream(self.stream)
+        graph.replay()
+        self.graphs.append(graph)
+        self.outs.append(out)
+
+
+class DecodeGraphs:
+    """A model's :class:`StepGraphs`, one per key, the :attr:`KEEP` most
+    recently used.  A graph reads each weight at the address it had at
+    capture, so all keys were captured over the same weight storage: when
+    any block or ``ln_f`` tensor lies elsewhere than then, or has another
+    dtype, shape or stride, every key is dropped and captured again.  That
+    covers tensors put in place (``load_state_dict(assign=True)``) and
+    storage swapped under the same parameters (``model.to(dtype)``,
+    ``.cpu()`` then ``.cuda()``).  Writes into the same storage need no
+    recapture: the graphs read them where they are.  A copy of the model
+    starts with none."""
+
+    KEEP = 4
+
+    def __init__(self):
+        self._weights: tuple = ()
+        self._keys: "collections.OrderedDict[tuple, StepGraphs]" = collections.OrderedDict()
+
+    def __deepcopy__(self, memo):
+        return DecodeGraphs()
+
+    def get(self, model: "GPT2", key: tuple) -> StepGraphs:
+        weights = tuple((t.data_ptr(), t.device, t.dtype, t.shape, t.stride())
+                        for t in (*model.h.parameters(), *model.h.buffers(),
+                                  *model.ln_f.parameters()))
+        if weights != self._weights:
+            self._weights = weights
+            self._keys.clear()
+        graphs = self._keys.pop(key, None) or StepGraphs(model.config.n_layer + 1)
+        self._keys[key] = graphs
+        while len(self._keys) > self.KEEP:
+            self._keys.popitem(last=False)
+        return graphs
+
+
+def decode_step_graphs(model: "GPT2", rows: int, beam_size: int, dtype: torch.dtype,
+                       device) -> Optional[StepGraphs]:
+    """The CUDA graphs for beam decode steps of ``rows`` rows at
+    ``beam_size`` in ``dtype`` on ``device`` (pass them to
+    :func:`gpt2_apply` as ``graphs``); None off a CUDA device, where the
+    segments run eagerly.  No cache form changes a segment's shapes, so
+    every form shares a key's graphs."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return model.decode_graphs.get(model, (rows, beam_size, dtype, device))
 
 
 def _block(x: Tensor, layer: _Block, bias: Optional[Tensor], cfg: GPT2Config) -> Tensor:
@@ -458,8 +631,7 @@ def _block(x: Tensor, layer: _Block, bias: Optional[Tensor], cfg: GPT2Config) ->
     q, k, v = (t.reshape(B, S, H, Dh).transpose(1, 2)
                for t in _split_qkv(layer.attn.c_attn(layer.ln_1(x)), cfg))
     attn = _softmax_attend(q, k, v, bias, 1.0 / math.sqrt(Dh))
-    x = x + layer.attn.c_proj(attn.transpose(1, 2).reshape(B, S, D))
-    return _mlp(x, layer, cfg)
+    return _block_out(x, attn.transpose(1, 2).reshape(B, S, D), layer, cfg)
 
 
 def causal_bias(S: int, T: int, offset: int = 0, device="cpu") -> Tensor:
@@ -526,7 +698,8 @@ def gpt2_apply(model: GPT2, *, input_ids: Optional[Tensor] = None,
                dtype=torch.float32, return_logits: bool = True,
                beam_size: Optional[int] = None, ancestry: Optional[Tensor] = None,
                cache_base: int = 0, shared_kv: Optional[List[LayerCache]] = None,
-               shared_len: Union[int, Tensor, None] = None, remat: bool = False):
+               shared_len: Union[int, Tensor, None] = None, remat: bool = False,
+               graphs: Optional[StepGraphs] = None):
     """GPT-2 forward → ``(logits_or_hidden, kv_cache)``.
 
     ``kv_cache=None``: full-sequence causal attention (``attention_mask``
@@ -540,7 +713,12 @@ def gpt2_apply(model: GPT2, *, input_ids: Optional[Tensor] = None,
     ``shared_kv`` (per-layer caches from :func:`init_shared_kv`) and
     ``shared_len`` c (an int, or a per-sample int ``[R]`` tensor on the
     cache's device): positions below c are read from the shared cache, the
-    live cache holds positions from ``cache_base`` on from slot 0.
+    live cache holds positions from ``cache_base`` on from slot 0.  A beam
+    decode step splits at each layer's decode attention into dense segments
+    (:func:`_beam_decode_blocks`): they replay ``graphs``
+    (:func:`decode_step_graphs`, a CUDA cache) where given, else run eagerly;
+    the hidden state of a graphed step is then the graphs' static output,
+    valid until their next step.
     """
     cfg = model.config
     if inputs_embeds is None:
@@ -563,6 +741,23 @@ def gpt2_apply(model: GPT2, *, input_ids: Optional[Tensor] = None,
 
     x = x + model.wpe.weight[offset:offset + S].to(dtype)[None]
 
+    if kv_cache is not None and ancestry is not None:
+        if beam_size is None or S != 1:
+            raise ValueError("ancestry needs beam_size and one token per step")
+        step = None
+        if shared_kv is not None:
+            step = _shared_step(shared_kv, shared_len, beam_size, cache_base, dev)
+        mask = beam_mask(ancestry, beam_size, slots, offset, cache_base,
+                         shared_len if shared_kv is not None else None)
+        # Graph capture and replay go to the current device: make it the cache's.
+        on_card = contextlib.nullcontext() if graphs is None else torch.cuda.device(dev)
+        with annotate("gpt2.blocks"), on_card:
+            x = _beam_decode_blocks(model, x, kv_cache, mask, cache_index, beam_size,
+                                    cache_base, shared_kv, step, graphs)
+        return (lm_logits(model, x) if return_logits else x), kv_cache
+    if graphs is not None:
+        raise ValueError("graphs serve beam decode steps only (ancestry and one token)")
+
     bias = causal_bias(S, T, offset, device=dev)
     if attention_mask is not None:
         if attention_mask.shape[-1] < T:
@@ -571,23 +766,12 @@ def gpt2_apply(model: GPT2, *, input_ids: Optional[Tensor] = None,
         pad_bias = torch.where(attention_mask.bool(), 0.0, NEG_INF).to(torch.float32)
         bias = bias + pad_bias[:, None, None, :]
 
-    if kv_cache is not None:
-        mask = step = None
-        if ancestry is not None:
-            if beam_size is None or S != 1:
-                raise ValueError("ancestry needs beam_size and one token per step")
-            if shared_kv is not None:
-                step = _shared_step(shared_kv, shared_len, beam_size, cache_base, dev)
-            mask = beam_mask(ancestry, beam_size, slots, offset, cache_base,
-                             shared_len if shared_kv is not None else None)
-        shared_layers = [None] * cfg.n_layer if step is None else shared_kv
-        with annotate("gpt2.blocks"):
-            for layer, ckv, sh in zip(model.h, kv_cache, shared_layers):
-                x = _cached_block(x, layer, ckv, cache_index, None if mask is not None else bias,
-                                  cfg, beam_size=beam_size, ancestry=mask,
-                                  cache_base=cache_base, shared=sh, shared_step=step)
-    else:
-        with annotate("gpt2.blocks"):
+    with annotate("gpt2.blocks"):
+        if kv_cache is not None:
+            for layer, ckv in zip(model.h, kv_cache):
+                x = _cached_block(x, layer, ckv, cache_index, bias, cfg, beam_size=beam_size,
+                                  cache_base=cache_base)
+        else:
             for layer in model.h:
                 if remat:
                     x = checkpoint(_block, x, layer, bias, cfg, use_reentrant=False)
