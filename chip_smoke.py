@@ -189,7 +189,20 @@ Phases (any failure exits non-zero before the last line):
    a 20-token beam-5 caption from an RN50-conditioned checkpoint launching
    ``flash_decode``; RN50x64 at 448 px, one seeded bf16 batch of 32, finite
    [32, 1024].  Information: RN50 b256 and RN50x64 b32 bf16 embeds/s and a
-   ``torch.profiler`` breakdown of one RN50 batch.
+   ``torch.profiler`` breakdown of one RN50 batch;
+13. DeepSeek-V2-Lite's routed experts (``run_dsv2(dev, tag)``, ~2 min): the
+   grouped expert kernels against their twin at the caption cell's decode shape
+   (640 tokens × top 6 of 64 experts, D 2048, F 1408) under random routing,
+   skewed routing (several row tiles an expert) and an expert no token
+   chose; graphed beam search on a small DeepSeek-V2 against the same
+   segments run eagerly (tokens, lengths, scores bit-identical);
+   DeepSeek-V2-Lite at its published widths, seeded bf16 on the card,
+   under the caption cell's beam search (b128, beam 5, 67 new tokens; its
+   second search): the grouped kernels launch exactly 2 × 26 MoE layers ×
+   (1 prefill + decode steps) times (the row's ``launches``) and no expert
+   runs through ``torch._grouped_mm``.  Information: the kernels' time
+   beside their bound, the twin, a per-expert ``torch.matmul`` loop and
+   ``torch._grouped_mm`` (a yardstick the port never calls).
 
 Every kernel's row carries its bound (bytes over 3.35 TB/s or operations
 over the data sheet's peak, whichever is larger) and the time of one
@@ -2974,8 +2987,172 @@ def run_resnet(dev, raw: Path, workdir: Path, tag: str) -> dict:
     return launches
 
 
+# Phase 13: DeepSeek-V2-Lite's routed experts at the caption cell's decode
+# step: 640 rows (128 images × beam 5), each token's top 6 of 64 experts.
+DSV2_E, DSV2_D, DSV2_F, DSV2_TOKENS, DSV2_TOPK = 64, 2048, 1408, 640, 6
+
+
+def dsv2_expert_rows(dev, g, kind: str):
+    """The token-expert rows of a decode step sorted by expert, and the
+    device offsets: the top 6 of 640 tokens' random router logits,
+    ``skewed`` (a ramp favours the first experts) or ``one_empty`` (expert
+    17 never chosen)."""
+    from clipcap_tpu_torch.ops import moe
+
+    logits = torch.randn(DSV2_TOKENS, DSV2_E, generator=g, device=dev)
+    if kind == "skewed":
+        logits += torch.linspace(4, 0, DSV2_E, device=dev)
+    if kind == "one_empty":
+        logits[:, 17] = -1e9
+    order, _, offsets = moe.expert_groups(logits.topk(DSV2_TOPK, dim=-1).indices, DSV2_E)
+    x = torch.randn(DSV2_TOKENS, DSV2_D, generator=g, device=dev, dtype=torch.bfloat16)
+    return x[order // DSV2_TOPK].contiguous(), offsets
+
+
+def run_dsv2(dev, tag: str) -> dict:
+    """Phase 13 (see the module docstring); returns the kernel's row, its
+    ``launches`` those of the full-width search (:func:`dsv2_main_path`)."""
+    import torch.nn.functional as F
+
+    from clipcap_tpu_torch.inference import beam as beam_mod
+    from clipcap_tpu_torch.models import deepseek_v2 as dsv2
+    from clipcap_tpu_torch.ops import moe
+
+    E, D, Fw = DSV2_E, DSV2_D, DSV2_F
+    g = torch.Generator(device=dev).manual_seed(13)
+    w13 = torch.randn(E, 2 * Fw, D, generator=g, device=dev, dtype=torch.bfloat16) * 0.02
+    w2 = torch.randn(E, D, Fw, generator=g, device=dev, dtype=torch.bfloat16) * 0.02
+    row = {"name": "grouped_expert_mlp", "route": "cuda",
+           "source": "clipcap_tpu_torch/csrc/moe_grouped.cu", "replaces": None}
+    launches = moe.grouped_expert_mlp.launches
+    for kind in ("random", "skewed", "one_empty"):
+        x, off = dsv2_expert_rows(dev, g, kind)
+        got = moe.grouped_expert_mlp(x, w13, w2, off)
+        want = moe.grouped_expert_mlp_ref(x, w13, w2, off)
+        err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+        counts = torch.diff(off)
+        print(f"check [{tag}] grouped_expert_mlp {kind}: {x.shape[0]} rows, "
+              f"{int((counts == 0).sum())} empty experts, up to {int(counts.max())} rows an "
+              f"expert; max error {err:.3g} of the output's scale")
+        if not err < TOL[torch.bfloat16]:
+            raise AssertionError(f"grouped_expert_mlp {kind}: error {err}")
+        row[f"rel_err_{kind}"] = err
+    if moe.grouped_expert_mlp.launches != launches + 6:
+        raise AssertionError("grouped_expert_mlp did not launch its kernels")
+
+    x, off = dsv2_expert_rows(dev, g, "random")
+    M, counts = x.shape[0], torch.diff(off)
+    used = int((counts > 0).sum())
+    row.update(bound((used * 3 * D * Fw + 2 * M * D) * 2, 6 * M * D * Fw, torch.bfloat16))
+    row.update(timed(lambda: moe.grouped_expert_mlp(x, w13, w2, off)))
+    row.update(timed(lambda: moe.grouped_expert_mlp_ref(x, w13, w2, off), "twin_"))
+    bounds = off.tolist()
+
+    def matmul_loop():
+        out = torch.empty_like(x)
+        for e in range(E):
+            lo, hi = bounds[e], bounds[e + 1]
+            if lo < hi:
+                gu = torch.matmul(x[lo:hi], w13[e].t())
+                out[lo:hi] = torch.matmul(F.silu(gu[:, :Fw]) * gu[:, Fw:], w2[e].t())
+        return out
+
+    row.update(timed(matmul_loop, "loop_"))
+    ends = off[1:].contiguous()
+
+    def grouped_mm():
+        gu = torch._grouped_mm(x, w13.transpose(1, 2), offs=ends)
+        return torch._grouped_mm(F.silu(gu[:, :Fw]) * gu[:, Fw:], w2.transpose(1, 2), offs=ends)
+
+    try:
+        row.update(timed(grouped_mm, "library_"))
+    except (AttributeError, RuntimeError) as exc:
+        print(f"time [{tag}] torch._grouped_mm: not timed ({str(exc).splitlines()[0]})")
+    print(f"time [{tag}] grouped_expert_mlp ({M} rows over {used} of {E} experts, D {D}, "
+          f"F {Fw}): " + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                                   for k, v in row.items() if k.endswith(("ms", "by"))))
+
+    cfg = dataclasses.replace(dsv2.DSV2_PRESETS["deepseek-v2-test"], hidden_size=256,
+                              intermediate_size=512, moe_intermediate_size=128,
+                              num_attention_heads=2, kv_lora_rank=64, qk_nope_head_dim=32,
+                              qk_rope_head_dim=16, v_head_dim=32, num_experts_per_tok=3,
+                              vocab_size=1000, name="smoke")
+    lm = dsv2.init_dsv2(cfg, seed=13).to(dev, torch.bfloat16)
+    prefix = torch.randn(8, P, cfg.hidden_size, generator=g, device=dev)
+    bp = beam_mod.BeamParams(beam_size=K, max_new_tokens=12, stop_token=-1)
+    steps = beam_mod.beam_search_batched.graph_steps
+    beam_mod.beam_search_batched(lm, prefix, bp)
+    graphed = beam_mod.beam_search_batched(lm, prefix, bp)
+    with mock.patch.object(beam_mod, "decode_step_graphs", lambda *a, **k: None):
+        eager = beam_mod.beam_search_batched(lm, prefix, bp)
+    same = all(torch.equal(a, b) for a, b in zip(graphed, eager))
+    print(f"check [{tag}] DeepSeek-V2 beam search: {beam_mod.beam_search_batched.graph_steps - steps} "
+          f"graphed steps; graphed == eager: {same}")
+    if not same:
+        raise AssertionError("graphed DeepSeek-V2 decode steps differ from eager ones")
+    del lm, w13, w2
+    row.update(dsv2_main_path(dev, tag))
+    return row
+
+
+def dsv2_main_path(dev, tag: str) -> dict:
+    """DeepSeek-V2-Lite at its published widths, seeded bf16 on the card,
+    under the caption cell's beam search (128 prefixes × beam K, N_NEW new
+    tokens): the grouped kernels launch twice per MoE layer in the prefill
+    and in every decode step, and no expert runs through ``torch.matmul``
+    or ``torch._grouped_mm``.  Counts the second search (the first captures
+    the decode graphs) → the row's ``launches`` and the search's time."""
+    from clipcap_tpu_torch.inference import beam as beam_mod
+    from clipcap_tpu_torch.models import deepseek_v2 as dsv2
+    from clipcap_tpu_torch.ops import moe
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dsv2.DSV2_PRESETS["deepseek-ai/DeepSeek-V2-Lite"]
+    g = torch.Generator(device=dev).manual_seed(17)
+    with torch.device("meta"):
+        shapes = [(n, p.shape) for n, p in dsv2.DeepseekV2(cfg).named_parameters()]
+    sd = {n: (torch.ones(s, dtype=torch.bfloat16, device=dev) if "norm" in n else
+              torch.empty(s, dtype=torch.bfloat16, device=dev).normal_(0.0, 0.02, generator=g))
+          for n, s in shapes}
+    lm = dsv2.dsv2_from_state_dict(sd, cfg)
+    del sd
+    n_moe = sum(cfg.is_moe(i) for i in range(cfg.num_hidden_layers))
+    prefix = torch.randn(128, P, cfg.hidden_size, generator=g, device=dev)
+    bp = beam_mod.BeamParams(beam_size=K, max_new_tokens=N_NEW, stop_token=-1)
+    f = beam_mod.beam_search_batched
+    f(lm, prefix, bp)
+    steps, graph_steps = f.decode_steps, f.graph_steps
+    moe.grouped_expert_mlp.launches = 0
+    with mock.patch.object(torch, "_grouped_mm", create=True,
+                           side_effect=AssertionError("an expert ran through _grouped_mm")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = f(lm, prefix, bp)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = moe.grouped_expert_mlp.launches
+    decode_steps, graphed = f.decode_steps - steps, f.graph_steps - graph_steps
+    want = 2 * n_moe * (1 + decode_steps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"check [{tag}] DeepSeek-V2-Lite at its widths (seeded bf16), beam-{K} b128, {N_NEW} "
+          f"new tokens: {launches} grouped-kernel launches (want 2 x {n_moe} MoE layers x (1 prefill "
+          f"+ {decode_steps} decode steps) = {want}); {graphed} of {decode_steps} steps graphed; "
+          f"{seconds:.3f} s, {128 / seconds:.2f} captions/s; peak {peak:.2f} GiB")
+    if launches != want:
+        raise AssertionError(f"grouped_expert_mlp launched {launches} times, want {want}")
+    if not bool(torch.isfinite(res.scores).all()):
+        raise AssertionError("DeepSeek-V2-Lite beam scores are not finite")
+    del lm, prefix, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "main_path_decode_steps": decode_steps,
+            "main_path_s": seconds}
+
+
 def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict) -> list:
-    """Phases 3-12 in ``workdir``; returns the kernels' rows.  Phase 10's
+    """Phases 3-13 in ``workdir``; returns the kernels' rows.  Phase 10's
     paths run beside the phases whose models and data they reuse: 10a
     after 6, 10c after 8, 10b after 9; phase 12 reuses phase 8's images."""
     slice_dir, train_dir = workdir / "slice", workdir / "train"
@@ -3047,6 +3224,7 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
     rn_launches = run_resnet(dev, pre_dir / "raw", pre_dir, name_limit)
     shutil.rmtree(pre_dir)
     print(host_memory())
+    dsv2_row = run_dsv2(dev, name_limit)
 
     def row(name, source, replaces, **numbers):
         return {"name": name, "route": "cuda", "source": f"clipcap_tpu_torch/csrc/{source}",
@@ -3085,6 +3263,7 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
         row("flash_decode_tile_major", "flash_decode.cu", "clipcap_tpu/ops/flash_decode.py:310",
             max_abs_err=errors["flash_decode_tile_major"],
             **xl_rows["flash_decode_tile_major"]),
+        dsv2_row,
     ]
 
 

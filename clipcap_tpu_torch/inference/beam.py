@@ -32,17 +32,26 @@ On the card each decode step's GPT-2 blocks replay CUDA graphs over their
 dense segments (``models/gpt2.py::decode_step_graphs``), captured by the
 first step of each key; the counters ``graph_steps`` and
 ``graph_captures`` count the steps that replayed and that captured.
+
+The same loop drives a DeepSeek-V2 language model
+(``models/deepseek_v2.py``): its forward is the module global
+``dsv2_apply``, as GPT-2's is ``gpt2_apply``, its cache the latent cache
+in the folded-prefix layout, its steps the same graphs.  Its cache takes
+none of ``int8_kv``, ``consolidate_every > 0``, ``tile_major`` and
+``fold_prefix=False``, which raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
-from clipcap_tpu_torch.models.gpt2 import (GPT2, consolidate_kv_cache, decode_step_graphs,
-                                           gpt2_apply, gpt2_embed_tokens, init_kv_cache,
-                                           init_shared_kv, lm_logits)
+from clipcap_tpu_torch.models.deepseek_v2 import (DeepseekV2, dsv2_apply, dsv2_embed_tokens,
+                                                  dsv2_logits, init_latent_cache)
+from clipcap_tpu_torch.models.gpt2 import (GPT2, cache_tile_major, consolidate_kv_cache,
+                                           decode_step_graphs, gpt2_apply, gpt2_embed_tokens,
+                                           init_kv_cache, init_shared_kv, lm_logits)
 from clipcap_tpu_torch.utils.profiling import annotate
 
 Tensor = torch.Tensor
@@ -75,8 +84,26 @@ def _rank(avg: Tensor, flat_ids: Tensor, K: int):
     return avg.gather(1, order), flat_ids.gather(1, order)
 
 
+def lm_functions(lm: Union[GPT2, DeepseekV2]):
+    """``(forward, embed_tokens, logits)`` of ``lm``'s family, read from
+    this module's globals at each call, so a caller that rebinds
+    ``gpt2_apply`` or ``dsv2_apply`` here is heard."""
+    if isinstance(lm, DeepseekV2):
+        return dsv2_apply, dsv2_embed_tokens, dsv2_logits
+    return gpt2_apply, gpt2_embed_tokens, lm_logits
+
+
+def _dsv2_forms(bp: BeamParams, tile_major: bool) -> None:
+    """Raise for a cache form the latent cache does not take."""
+    for bad, what in ((bp.int8_kv, "int8_kv"), (bp.consolidate_every > 0, "consolidate_every > 0"),
+                      (tile_major, "tile_major"), (not bp.fold_prefix, "fold_prefix=False")):
+        if bad:
+            raise NotImplementedError(f"beam search over DeepSeek-V2's latent cache with {what} "
+                                      "is not ported (ROADMAP.md, F12)")
+
+
 @torch.no_grad()
-def beam_search_batched(lm: GPT2, prefix_embeds: Tensor, bp: BeamParams,
+def beam_search_batched(lm: Union[GPT2, DeepseekV2], prefix_embeds: Tensor, bp: BeamParams,
                         dtype=torch.bfloat16) -> BeamResult:
     """R independent beam searches over ``prefix_embeds`` [R, P, D], batched
     into one decode loop."""
@@ -87,10 +114,22 @@ def beam_search_batched(lm: GPT2, prefix_embeds: Tensor, bp: BeamParams,
     dev = prefix_embeds.device
     pe = prefix_embeds.to(dtype)
     cache_kw = dict(dtype=dtype, beam_size=K, int8=bp.int8_kv, device=dev)
+    tile_major = cache_tile_major(bp.tile_major)
+    apply, embed_tokens, head = lm_functions(lm)
+    dsv2 = isinstance(lm, DeepseekV2)
+    if dsv2:
+        _dsv2_forms(bp, tile_major)
 
     with annotate("beam.prefill"):
         shared = None
-        if C > 0:
+        if dsv2:
+            cache = init_latent_cache(lm.config, B, N, dtype=dtype, beam_size=K,
+                                      prefix_slots=P, device=dev)
+            hidden0, cache = apply(lm, inputs_embeds=pe, kv_cache=cache, cache_index=0,
+                                   dtype=dtype, return_logits=False)
+            h_last = hidden0[:, -1]
+            anc_len, base = N, P
+        elif C > 0:
             # Prefill-to-shared: the prefix runs once per sample straight into
             # the shared cache (slot t = position t); the live beam cache holds
             # the N generated positions from slot 0.
@@ -103,20 +142,20 @@ def beam_search_batched(lm: GPT2, prefix_embeds: Tensor, bp: BeamParams,
         elif bp.fold_prefix:
             # The prefix K/V is identical across beams: one beam_size-free
             # prefill writes it once, into slots [0, P) of the beam cache.
-            cache = init_kv_cache(lm.config, B, N, prefix_slots=P, tile_major=bp.tile_major,
+            cache = init_kv_cache(lm.config, B, N, prefix_slots=P, tile_major=tile_major,
                                   **cache_kw)
             hidden0, cache = gpt2_apply(lm, inputs_embeds=pe, kv_cache=cache, cache_index=0,
                                         dtype=dtype, return_logits=False)
             h_last = hidden0[:, -1]
             anc_len, base = N, P
         else:
-            cache = init_kv_cache(lm.config, B, P + N, tile_major=bp.tile_major, **cache_kw)
+            cache = init_kv_cache(lm.config, B, P + N, tile_major=tile_major, **cache_kw)
             hidden0, cache = gpt2_apply(lm, inputs_embeds=pe.repeat_interleave(K, dim=0),
                                         kv_cache=cache, cache_index=0, dtype=dtype,
                                         beam_size=K, return_logits=False)
             h_last = hidden0.reshape(R, K, P, -1)[:, 0, -1]
             anc_len, base = P + N, 0
-        logp0 = torch.log_softmax(lm_logits(lm, h_last).float() / t, dim=-1)   # [R, V]
+        logp0 = torch.log_softmax(head(lm, h_last).float() / t, dim=-1)       # [R, V]
         V = logp0.shape[-1]
         scores, first = torch.topk(logp0, K, dim=-1)                          # [R, K]
 
@@ -164,12 +203,12 @@ def beam_search_batched(lm: GPT2, prefix_embeds: Tensor, bp: BeamParams,
             # beam writes its own row, so its ancestry there is its own row.
             pos = P + step - 1
             ancestry[:, pos - base] = own_row
-            emb = gpt2_embed_tokens(lm, tokens[:, :, step - 1].reshape(B, 1), dtype)
+            emb = embed_tokens(lm, tokens[:, :, step - 1].reshape(B, 1), dtype)
             replay = graphs is not None and graphs.ready
-            step_logits, cache = gpt2_apply(lm, inputs_embeds=emb, kv_cache=cache,
-                                            cache_index=pos, dtype=dtype, beam_size=K,
-                                            ancestry=ancestry, cache_base=base, shared_kv=shared,
-                                            shared_len=c if C > 0 else None, graphs=graphs)
+            step_logits, cache = apply(lm, inputs_embeds=emb, kv_cache=cache, cache_index=pos,
+                                       dtype=dtype, beam_size=K, ancestry=ancestry,
+                                       cache_base=base, shared_kv=shared,
+                                       shared_len=c if C > 0 else None, graphs=graphs)
             if replay:
                 _counters.graph_steps += 1
             elif graphs is not None:
@@ -212,7 +251,7 @@ beam_search_batched.graph_captures = 0  # decode steps that captured them
 _counters = beam_search_batched        # the counters' owner, whatever rebinds the name
 
 
-def beam_search(lm: GPT2, prefix_embeds: Tensor, bp: BeamParams,
+def beam_search(lm: Union[GPT2, DeepseekV2], prefix_embeds: Tensor, bp: BeamParams,
                 dtype=torch.bfloat16) -> BeamResult:
     """Single-sample beam search: ``prefix_embeds`` [1, P, D]."""
     res = beam_search_batched(lm, prefix_embeds, bp, dtype=dtype)

@@ -17,10 +17,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from clipcap_tpu_torch.inference.beam import BeamParams, beam_search
+from clipcap_tpu_torch.inference.beam import BeamParams, beam_search, lm_functions
 from clipcap_tpu_torch.inference.engine import DecodeResult, SamplingParams, decode
 from clipcap_tpu_torch.models.clipcap import ClipCapModel
-from clipcap_tpu_torch.models.gpt2 import gpt2_embed_tokens
 
 
 def _prep_embeds(model: ClipCapModel, embeds, text_prefix_tokens, dtype) -> torch.Tensor:
@@ -29,8 +28,9 @@ def _prep_embeds(model: ClipCapModel, embeds, text_prefix_tokens, dtype) -> torc
     if embeds.shape[0] != 1:
         raise ValueError("pass a single sample; candidates are batched internally")
     if text_prefix_tokens is not None:
-        tp = gpt2_embed_tokens(model.language_model,
-                               torch.as_tensor(text_prefix_tokens, device=model.device), dtype)
+        embed_tokens = lm_functions(model.language_model)[1]
+        tp = embed_tokens(model.language_model,
+                          torch.as_tensor(text_prefix_tokens, device=model.device), dtype)
         embeds = torch.cat([embeds, tp], dim=1)
     return embeds
 

@@ -6,17 +6,24 @@ holds the reference's two submodules, ``language_model`` and
 prefixes; :func:`load` reads the JAX package's ``.npz`` + YAML checkpoints
 and the reference's torch state dicts;
 :func:`clipcap_loss` is the training loss.
+
+``language_model`` may also name a DeepSeek-V2 (``deepseek-ai/DeepSeek-V2-Lite``,
+``models/deepseek_v2.py``; seeded with a warning without weights on disk):
+:func:`init_clipcap` builds it and beam search serves it; training with it
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import os
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Tuple, Union
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from clipcap_tpu_torch.config import Config
+from clipcap_tpu_torch.models.deepseek_v2 import (DeepseekV2, DeepseekV2Config, init_dsv2,
+                                                  is_dsv2, load_dsv2)
 from clipcap_tpu_torch.models.gpt2 import (GPT2, GPT2Config, get_gpt2_config, gpt2_apply,
                                            gpt2_embed_tokens, init_gpt2, lm_logits)
 from clipcap_tpu_torch.models.mapper import (MapperConfig, TransformerMapper, init_mapper,
@@ -31,7 +38,7 @@ class ClipCapModel(nn.Module):
     ``model.transformer_mapper(embeddings)`` maps encoder embeddings to the
     LM prefix, as in the reference's demo."""
 
-    def __init__(self, config: Config, language_model: GPT2,
+    def __init__(self, config: Config, language_model: Union[GPT2, DeepseekV2],
                  transformer_mapper: TransformerMapper):
         super().__init__()
         self.config = config
@@ -39,7 +46,7 @@ class ClipCapModel(nn.Module):
         self.transformer_mapper = transformer_mapper
 
     @property
-    def lm_config(self) -> GPT2Config:
+    def lm_config(self) -> Union[GPT2Config, DeepseekV2Config]:
         return self.language_model.config
 
     @property
@@ -52,7 +59,7 @@ class ClipCapModel(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.language_model.wte.weight.device
+        return next(self.language_model.parameters()).device
 
     def params(self) -> dict:
         """The JAX package's parameter tree ``{"mapper", "lm"}`` (numpy)."""
@@ -94,18 +101,22 @@ def model_from_params(config: Config, params: dict,
                         mapper_from_params(params["mapper"], mapper_config))
 
 
-def init_clipcap(config: Config, lm_config: Optional[GPT2Config] = None,
+def init_clipcap(config: Config, lm_config: Union[GPT2Config, DeepseekV2Config, None] = None,
                  seed: int = 0) -> ClipCapModel:
     """A ClipCap model as the JAX package's ``init_clipcap`` builds it: the
     mapper from ``init_mapper(seed)``; GPT-2 from ``init_gpt2(lm_config,
-    seed)`` when ``lm_config`` is given, else resolved by name
-    (``hf_import.load_gpt2``: HF weights on disk, or seeded with a
-    warning; never fetched)."""
+    seed)`` (a DeepSeek-V2 from ``init_dsv2``) when ``lm_config`` is given,
+    else resolved by name (``hf_import.load_gpt2`` or
+    ``deepseek_v2.load_dsv2``: HF weights on disk, or seeded with a warning;
+    never fetched)."""
     from clipcap_tpu_torch.convert import gpt2_from_params, mapper_from_params
     from clipcap_tpu_torch.models.hf_import import load_gpt2
 
     if lm_config is None:
-        lm = load_gpt2(config.language_model)
+        name = config.language_model
+        lm = load_dsv2(name) if is_dsv2(name) else load_gpt2(name)
+    elif isinstance(lm_config, DeepseekV2Config):
+        lm = init_dsv2(lm_config, seed=seed)
     else:
         lm = gpt2_from_params(init_gpt2(lm_config, seed=seed), lm_config)
     mapper_config = build_mapper_config(config, lm.config.n_embd)
@@ -176,6 +187,9 @@ def clipcap_forward(model: ClipCapModel, tokens: Tensor, embeddings, mask: Tenso
     hidden states ``[B, prefix+T, D]``, which the loss projects onto the
     vocabulary in chunks (``lm_logits``).  ``tokens`` [B, T] must be valid
     ids (pads replaced); ``mask`` [B, T] marks the real tokens."""
+    if isinstance(model.language_model, DeepseekV2):
+        raise NotImplementedError("training with a DeepSeek-V2 language model is not ported "
+                                  "(ROADMAP.md, F12)")
     token_embeddings = gpt2_embed_tokens(model.language_model, tokens, dtype)
     prefix = mapper_apply(model.transformer_mapper, embeddings, dtype=dtype)
     inputs_embeds = torch.cat([prefix, token_embeddings], dim=1)

@@ -187,6 +187,15 @@ class GPT2(nn.Module):
         self.ln_f = LayerNorm(cfg.n_embd, cfg.layer_norm_epsilon)
         self.decode_graphs = DecodeGraphs()     # beam decode's CUDA graphs, by key
 
+    @property
+    def decode_segments(self) -> int:
+        """Dense segments of a beam decode step (:func:`_beam_decode_blocks`)."""
+        return self.config.n_layer + 1
+
+    def decode_tensors(self):
+        """The tensors the segments read: the blocks' and ``ln_f``'s."""
+        return (*self.h.parameters(), *self.h.buffers(), *self.ln_f.parameters())
+
 
 # ---------------------------------------------------------------------------
 # KV cache
@@ -220,6 +229,14 @@ def _zeros_cache(shape, n_layer: int, dtype, int8: bool, device) -> List[LayerCa
     return [torch.zeros(shape, dtype=dtype, device=device) for _ in range(n_layer)]
 
 
+def cache_tile_major(tile_major: Optional[bool]) -> bool:
+    """Whether a beam cache is tile-major: ``tile_major``, or when None the
+    env ``CLIPCAP_CACHE_TILE_MAJOR=1``."""
+    if tile_major is None:
+        return os.environ.get("CLIPCAP_CACHE_TILE_MAJOR", "0") == "1"
+    return tile_major
+
+
 def init_kv_cache(cfg: GPT2Config, batch: int, max_len: int,
                   dtype=torch.bfloat16, beam_size: Optional[int] = None,
                   prefix_slots: int = 0, int8: bool = False,
@@ -239,8 +256,7 @@ def init_kv_cache(cfg: GPT2Config, batch: int, max_len: int,
     ``u = _pick_u_tile(slots)``, the JAX package's shape tile for tile; an
     int8 cache stays strided, as there.
     """
-    if tile_major is None:
-        tile_major = os.environ.get("CLIPCAP_CACHE_TILE_MAJOR", "0") == "1"
+    tile_major = cache_tile_major(tile_major)
     quantum = INT8_SLOT_QUANTUM if int8 else CACHE_SLOT_QUANTUM
     if prefix_slots:
         if beam_size is None:
@@ -486,14 +502,15 @@ def _beam_decode_blocks(model: "GPT2", x: Tensor, kv_cache: List[LayerCache], ma
     between them.  ``mask`` is :func:`beam_mask`'s; with ``shared_kv`` the
     live cache starts at slot 0 and ``step`` holds the shared region's
     mask and bounds."""
-    if graphs is None:
-        def segment(i, x, attn):
-            return _decode_segment(model, i, x, attn, K)
-    else:
-        def segment(i, x, attn):
-            return graphs.run(model, i, x, attn, K)
+    steps = EagerSteps() if graphs is None else graphs
+
+    def segment(i, carry, inp):
+        if carry is None:
+            return _decode_segment(model, i, inp, None, K)
+        return _decode_segment(model, i, carry[0], inp, K)
+
     slot = (0 if shared_kv is not None else cache_base) + (cache_index - cache_base) * K
-    x, q1, kv_rows = segment(0, x, None)
+    x, q1, kv_rows = steps.run(segment, 0, x)
     for i, ckv in enumerate(kv_cache):
         _write_kv(ckv, kv_rows, slot)
         if shared_kv is None:
@@ -507,53 +524,69 @@ def _beam_decode_blocks(model: "GPT2", x: Tensor, kv_cache: List[LayerCache], ma
             attn = flash_decode_two_phase(
                 q1, skv, step.mask, lkv, mask, sh_valid=step.sh_valid, lv_lo=step.lv_lo,
                 lv_valid=slot + K, shared_scales=s_scales, live_scales=l_scales)
-        x, q1, kv_rows = segment(i + 1, x, attn)
+        x, q1, kv_rows = steps.run(segment, i + 1, attn)
     return x
 
 
+class EagerSteps:
+    """:class:`StepGraphs`' interface with the segments run eagerly (off
+    the card, or with graphs turned off)."""
+
+    def __init__(self):
+        self.carry = None
+
+    def run(self, segment, i: int, *inputs: Tensor) -> tuple:
+        """Segment ``i`` on ``inputs`` after the previous segment's outputs."""
+        self.carry = segment(i, self.carry if i else None, *inputs)
+        return self.carry
+
+
 class StepGraphs:
-    """The L + 1 segments of a beam decode step as CUDA graphs, for one key
+    """The dense segments of a beam decode step as CUDA graphs, for one key
     (rows, beam size, dtype, device) of one model.
 
-    The first step captures them in replay order into one memory pool, each
+    ``segment(i, carry, *inputs)`` computes segment ``i`` from ``carry``,
+    the previous segment's outputs (None for segment 0), and its own
+    inputs: the step's inputs for segment 0, else what ran eagerly since
+    the previous segment (GPT-2: the layer's attention output).  The first
+    step captures the segments in replay order into one memory pool, each
     after a warm-up run on the capture stream, and replays each right after
-    its capture; later steps replay them.  A segment reads the previous
-    segment's static outputs and the static attention input, into which
-    :meth:`run` copies each layer's attention output; segment 0 reads the
-    static copy of the step's input.  A segment's outputs stay valid until
-    the next segment of the pool replays, so one decode step runs at a time
-    per key.  A capture cut short is taken again from segment 0."""
+    its capture; later steps replay them.  :meth:`run` copies the inputs
+    into static buffers, one per (segment 0 or not, argument, shape,
+    dtype): the segments after the first share them, as they run one after
+    the other.  A segment's outputs stay valid until the next segment of
+    the pool replays, so one decode step runs at a time per key.  A capture
+    cut short is taken again from segment 0."""
 
     def __init__(self, segments: int):
         self.segments = segments
         self.graphs: List[torch.cuda.CUDAGraph] = []
         self.outs: List[tuple] = []
-        self.x = self.attn = self.pool = self.stream = None
+        self.inputs: Dict[tuple, Tensor] = {}
+        self.pool = self.stream = None
 
     @property
     def ready(self) -> bool:
         """Whether every segment is captured (a step replays only)."""
         return len(self.graphs) == self.segments
 
-    def run(self, model: "GPT2", i: int, x: Tensor, attn: Optional[Tensor], K: int):
-        """Segment ``i`` on ``x`` (segment 0) or ``attn`` (the others; ``x``
-        is then the previous segment's static output) → its static outputs."""
-        if i == 0:
-            if not self.ready:
-                self.graphs, self.outs = [], []
-            if self.x is None:
-                self.x = torch.empty_like(x)
-            self.x.copy_(x)
-            args = (self.x, None)
-        else:
-            if self.attn is None:
-                self.attn = torch.empty_like(attn)
-            self.attn.copy_(attn)
-            args = (self.outs[i - 1][0], self.attn)
+    def run(self, segment, i: int, *inputs: Tensor) -> tuple:
+        """Segment ``i`` on ``inputs`` → its static outputs."""
+        if i == 0 and not self.ready:
+            self.graphs, self.outs = [], []
+        static = []
+        for n, t in enumerate(inputs):
+            key = (i == 0, n, t.shape, t.dtype)
+            buf = self.inputs.get(key)
+            if buf is None:
+                buf = self.inputs[key] = torch.empty_like(t)
+            buf.copy_(t)
+            static.append(buf)
+        carry = self.outs[i - 1] if i else None
         if i < len(self.graphs):
             self.graphs[i].replay()
         else:
-            self._capture(lambda: _decode_segment(model, i, *args, K))
+            self._capture(lambda: segment(i, carry, *static))
         return self.outs[i]
 
     def _capture(self, fn) -> None:
@@ -580,13 +613,14 @@ class DecodeGraphs:
     """A model's :class:`StepGraphs`, one per key, the :attr:`KEEP` most
     recently used.  A graph reads each weight at the address it had at
     capture, so all keys were captured over the same weight storage: when
-    any block or ``ln_f`` tensor lies elsewhere than then, or has another
-    dtype, shape or stride, every key is dropped and captured again.  That
-    covers tensors put in place (``load_state_dict(assign=True)``) and
-    storage swapped under the same parameters (``model.to(dtype)``,
-    ``.cpu()`` then ``.cuda()``).  Writes into the same storage need no
-    recapture: the graphs read them where they are.  A copy of the model
-    starts with none."""
+    any tensor the segments read (``model.decode_tensors()``: GPT-2's
+    blocks and ``ln_f``) lies elsewhere than then, or has another dtype,
+    shape or stride, every key is dropped and captured again.  That covers
+    tensors put in place (``load_state_dict(assign=True)``) and storage
+    swapped under the same parameters (``model.to(dtype)``, ``.cpu()`` then
+    ``.cuda()``).  Writes into the same storage need no recapture: the
+    graphs read them where they are.  A copy of the model starts with
+    none."""
 
     KEEP = 4
 
@@ -597,25 +631,25 @@ class DecodeGraphs:
     def __deepcopy__(self, memo):
         return DecodeGraphs()
 
-    def get(self, model: "GPT2", key: tuple) -> StepGraphs:
+    def get(self, model: nn.Module, key: tuple) -> StepGraphs:
         weights = tuple((t.data_ptr(), t.device, t.dtype, t.shape, t.stride())
-                        for t in (*model.h.parameters(), *model.h.buffers(),
-                                  *model.ln_f.parameters()))
+                        for t in model.decode_tensors())
         if weights != self._weights:
             self._weights = weights
             self._keys.clear()
-        graphs = self._keys.pop(key, None) or StepGraphs(model.config.n_layer + 1)
+        graphs = self._keys.pop(key, None) or StepGraphs(model.decode_segments)
         self._keys[key] = graphs
         while len(self._keys) > self.KEEP:
             self._keys.popitem(last=False)
         return graphs
 
 
-def decode_step_graphs(model: "GPT2", rows: int, beam_size: int, dtype: torch.dtype,
+def decode_step_graphs(model: nn.Module, rows: int, beam_size: int, dtype: torch.dtype,
                        device) -> Optional[StepGraphs]:
     """The CUDA graphs for beam decode steps of ``rows`` rows at
     ``beam_size`` in ``dtype`` on ``device`` (pass them to
-    :func:`gpt2_apply` as ``graphs``); None off a CUDA device, where the
+    :func:`gpt2_apply`, or ``deepseek_v2.dsv2_apply`` for a model of that
+    family, as ``graphs``); None off a CUDA device, where the
     segments run eagerly.  No cache form changes a segment's shapes, so
     every form shares a key's graphs."""
     device = torch.device(device)

@@ -55,6 +55,10 @@ SIGNATURES = {
     "clipcap_fused_adamw": [_P, _I, _L, _F, _F, _F, _F, _F, _F, _F, _P],
     # img, w, bias (or NULL), out, B, H, W, P, D, pixel path, stream
     "clipcap_patch_embed": [_P] * 4 + [_I] * 6 + [_P],
+    # x, w13, offsets, h, E, D, F, stream
+    "clipcap_moe_gate_up": [_P] * 4 + [_I] * 3 + [_P],
+    # h, w2, offsets, y, E, F, D, stream
+    "clipcap_moe_down": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 
