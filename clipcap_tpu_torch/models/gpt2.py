@@ -821,7 +821,29 @@ def gpt2_embed_tokens(model: GPT2, token_ids: Tensor, dtype=torch.float32) -> Te
     return embed(model.wte.weight, token_ids, dtype)
 
 
+# The head's row count is padded to a multiple of this.  The logits' leading
+# dimension is the row count, and with an odd one (GPT-2's 50,257) cuBLAS can
+# only take its align1 kernels, for the product and for its backward.
+HEAD_ROW_QUANTUM = 64
+
+
 def lm_logits(model: GPT2, hidden: Tensor) -> Tensor:
-    """Project hidden states onto the vocabulary (the tied LM head)."""
+    """Project hidden states onto the vocabulary (the tied LM head).
+
+    The product runs on the head in the hidden states' dtype with zero rows
+    appended up to Vp, a multiple of :data:`HEAD_ROW_QUANTUM` (50,304 for
+    GPT-2's 50,257), and the logits are the view ``[..., :V]`` of the
+    ``[..., Vp]`` product: the pad columns are never ranked, sampled or put
+    into a loss.  The padded head is made in each call, in the one pass
+    that casts it; it is differentiable, so a trainable ``wte`` gets the
+    gradients of the unpadded product."""
+    w = model.wte.weight
+    V, D = w.shape
     with annotate("gpt2.lm_head"):
-        return hidden @ model.wte.weight.to(hidden.dtype).t()
+        head = w.new_empty((round_up(V, HEAD_ROW_QUANTUM), D), dtype=hidden.dtype)
+        head[:V] = w
+        head[V:] = 0
+        # One GEMM over all rows: matmul runs a strided 3-D hidden (a loss
+        # chunk's slice) as a batched GEMM of a few rows a batch.
+        rows = hidden.reshape(-1, D) @ head.t()
+        return rows.view(*hidden.shape[:-1], head.shape[0])[..., :V]
