@@ -12,7 +12,7 @@ Counterpart of ``clipcap_tpu/inference/beam.py``, token for token:
 
 The KV cache never moves: a ``[B, T]`` ancestry table records which row
 holds each beam's K/V per position and attention selects through it
-(``models/gpt2.py``).  Only tokens, scores and lengths are gathered.  The
+(``models/decoding.py``).  Only tokens, scores and lengths are gathered.  The
 prefix K/V is stored once per sample at the head of the beam cache (the
 folded prefix, the default) or replicated per beam (``fold_prefix=False``).
 
@@ -28,17 +28,14 @@ shared region ``[0, c)`` and the live beam slots past c in one kernel
 pass.  The duplicate slots it skips weighed exactly 0, so the tokens equal
 C = 0's up to fp summation order.
 
-On the card each decode step's GPT-2 blocks replay CUDA graphs over their
-dense segments (``models/gpt2.py::decode_step_graphs``), captured by the
+On the card each decode step's blocks replay CUDA graphs over their dense
+segments (``models/decoding.py::decode_step_graphs``), captured by the
 first step of each key; the counters ``graph_steps`` and
 ``graph_captures`` count the steps that replayed and that captured.
 
-The same loop drives a DeepSeek-V2 language model
-(``models/deepseek_v2.py``): its forward is the module global
-``dsv2_apply``, as GPT-2's is ``gpt2_apply``, its cache the latent cache
-in the folded-prefix layout, its steps the same graphs.  Its cache takes
-none of ``int8_kv``, ``consolidate_every > 0``, ``tile_major`` and
-``fold_prefix=False``, which raise ``NotImplementedError``.
+Every decoder family runs through :func:`lm_functions`: GPT-2's forward is
+the module global ``gpt2_apply``, DeepSeek-V2's ``dsv2_apply``; a family's
+beam-cache constructor refuses the forms its cache lacks.
 """
 from __future__ import annotations
 
@@ -47,11 +44,12 @@ from typing import NamedTuple, Optional, Union
 
 import torch
 
-from clipcap_tpu_torch.models.deepseek_v2 import (DeepseekV2, dsv2_apply, dsv2_embed_tokens,
-                                                  dsv2_logits, init_latent_cache)
+from clipcap_tpu_torch.models.decoding import decode_step_graphs
+from clipcap_tpu_torch.models.deepseek_v2 import (DeepseekV2, dsv2_apply, dsv2_beam_cache,
+                                                  dsv2_embed_tokens, dsv2_logits)
 from clipcap_tpu_torch.models.gpt2 import (GPT2, cache_tile_major, consolidate_kv_cache,
-                                           decode_step_graphs, gpt2_apply, gpt2_embed_tokens,
-                                           init_kv_cache, init_shared_kv, lm_logits)
+                                           gpt2_apply, gpt2_beam_cache, gpt2_embed_tokens,
+                                           lm_logits)
 from clipcap_tpu_torch.utils.profiling import annotate
 
 Tensor = torch.Tensor
@@ -85,21 +83,12 @@ def _rank(avg: Tensor, flat_ids: Tensor, K: int):
 
 
 def lm_functions(lm: Union[GPT2, DeepseekV2]):
-    """``(forward, embed_tokens, logits)`` of ``lm``'s family, read from
-    this module's globals at each call, so a caller that rebinds
+    """``(forward, embed_tokens, logits, beam_cache)`` of ``lm``'s family,
+    read from this module's globals at each call, so a caller that rebinds
     ``gpt2_apply`` or ``dsv2_apply`` here is heard."""
     if isinstance(lm, DeepseekV2):
-        return dsv2_apply, dsv2_embed_tokens, dsv2_logits
-    return gpt2_apply, gpt2_embed_tokens, lm_logits
-
-
-def _dsv2_forms(bp: BeamParams, tile_major: bool) -> None:
-    """Raise for a cache form the latent cache does not take."""
-    for bad, what in ((bp.int8_kv, "int8_kv"), (bp.consolidate_every > 0, "consolidate_every > 0"),
-                      (tile_major, "tile_major"), (not bp.fold_prefix, "fold_prefix=False")):
-        if bad:
-            raise NotImplementedError(f"beam search over DeepSeek-V2's latent cache with {what} "
-                                      "is not ported (ROADMAP.md, F12)")
+        return dsv2_apply, dsv2_embed_tokens, dsv2_logits, dsv2_beam_cache
+    return gpt2_apply, gpt2_embed_tokens, lm_logits, gpt2_beam_cache
 
 
 @torch.no_grad()
@@ -113,46 +102,22 @@ def beam_search_batched(lm: Union[GPT2, DeepseekV2], prefix_embeds: Tensor, bp: 
     t = bp.temperature if bp.temperature > 0 else 1.0
     dev = prefix_embeds.device
     pe = prefix_embeds.to(dtype)
-    cache_kw = dict(dtype=dtype, beam_size=K, int8=bp.int8_kv, device=dev)
-    tile_major = cache_tile_major(bp.tile_major)
-    apply, embed_tokens, head = lm_functions(lm)
-    dsv2 = isinstance(lm, DeepseekV2)
-    if dsv2:
-        _dsv2_forms(bp, tile_major)
+    apply, embed_tokens, head, beam_cache = lm_functions(lm)
 
     with annotate("beam.prefill"):
-        shared = None
-        if dsv2:
-            cache = init_latent_cache(lm.config, B, N, dtype=dtype, beam_size=K,
-                                      prefix_slots=P, device=dev)
-            hidden0, cache = apply(lm, inputs_embeds=pe, kv_cache=cache, cache_index=0,
-                                   dtype=dtype, return_logits=False)
-            h_last = hidden0[:, -1]
-            anc_len, base = N, P
-        elif C > 0:
-            # Prefill-to-shared: the prefix runs once per sample straight into
-            # the shared cache (slot t = position t); the live beam cache holds
-            # the N generated positions from slot 0.
-            shared = init_shared_kv(lm.config, R, P + N, dtype=dtype, int8=bp.int8_kv, device=dev)
-            hidden0, shared = gpt2_apply(lm, inputs_embeds=pe, kv_cache=shared, cache_index=0,
-                                         dtype=dtype, return_logits=False)
-            cache = init_kv_cache(lm.config, B, N, tile_major=False, **cache_kw)
-            h_last = hidden0[:, -1]
-            anc_len, base = N, P
-        elif bp.fold_prefix:
+        cache, shared = beam_cache(lm.config, bp, R, P, cache_tile_major(bp.tile_major), dtype, dev)
+        if C > 0 or bp.fold_prefix:
             # The prefix K/V is identical across beams: one beam_size-free
-            # prefill writes it once, into slots [0, P) of the beam cache.
-            cache = init_kv_cache(lm.config, B, N, prefix_slots=P, tile_major=tile_major,
-                                  **cache_kw)
-            hidden0, cache = gpt2_apply(lm, inputs_embeds=pe, kv_cache=cache, cache_index=0,
-                                        dtype=dtype, return_logits=False)
+            # prefill writes it once, into slots [0, P) of the beam cache or,
+            # for C > 0, into the shared cache (slot t = position t).
+            hidden0, _ = apply(lm, inputs_embeds=pe, kv_cache=shared or cache, cache_index=0,
+                               dtype=dtype, return_logits=False)
             h_last = hidden0[:, -1]
             anc_len, base = N, P
         else:
-            cache = init_kv_cache(lm.config, B, P + N, tile_major=tile_major, **cache_kw)
-            hidden0, cache = gpt2_apply(lm, inputs_embeds=pe.repeat_interleave(K, dim=0),
-                                        kv_cache=cache, cache_index=0, dtype=dtype,
-                                        beam_size=K, return_logits=False)
+            hidden0, cache = apply(lm, inputs_embeds=pe.repeat_interleave(K, dim=0),
+                                   kv_cache=cache, cache_index=0, dtype=dtype,
+                                   beam_size=K, return_logits=False)
             h_last = hidden0.reshape(R, K, P, -1)[:, 0, -1]
             anc_len, base = P + N, 0
         logp0 = torch.log_softmax(head(lm, h_last).float() / t, dim=-1)       # [R, V]

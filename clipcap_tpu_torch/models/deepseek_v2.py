@@ -35,11 +35,9 @@ per-expert keys).
 The cache (:func:`init_latent_cache`) holds per layer one buffer
 ``[rows, slots, C + r]``: each position's normalised latent and roped
 ``k_pe``, 576 values at DeepSeek-V2-Lite's widths, in place of GPT-2's
-per-head K|V.  Beam search uses GPT-2's layout (``models/gpt2.py``): the
-prefix once per sample in slots ``[0, P)``, then time-major slot
-``P + (t - P)·K + kb``; the beam reorder is ``gpt2.beam_mask`` over the
-ancestry, and the cache never moves.  Prefill (and any forward that is
-not a beam decode step) decompresses K and V from the latents; a beam
+per-head K|V, in the beam layout of ``models/decoding.py``.  Prefill (and
+any forward that is not a beam decode step) decompresses K and V from the
+latents; a beam
 decode step runs absorbed: ``q_lat = q_nope·W_UKᵀ`` per head, scores
 against ``[c; k_pe]`` with a float32 softmax, the weighted sum of the
 latents, then ``W_UV`` and ``o_proj`` (``ops/mla.py::mla_decode``).
@@ -49,13 +47,12 @@ attention and at each mixture-of-experts layer's grouped expert products
 (:func:`_decode_segment`); the cache write, :func:`mla_decode` and
 :func:`grouped_expert_mlp` run eagerly between them and are resolved
 through this module's attributes at each call.  On the card the segments
-replay CUDA graphs (``gpt2.StepGraphs``, one per key through the model's
+replay CUDA graphs (``decoding.StepGraphs``, one per key through the model's
 ``decode_graphs``); routing (softmax, top-k, the sort by expert and the
 offsets) stays on the device inside them, so no step reads the host.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import glob
 import json
@@ -68,8 +65,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from clipcap_tpu_torch.models.gpt2 import (CACHE_SLOT_QUANTUM, DecodeGraphs, EagerSteps,
-                                           _softmax_attend, beam_mask, causal_bias)
+from clipcap_tpu_torch.models.decoding import (CACHE_SLOT_QUANTUM, DecodeGraphs, beam_step,
+                                              causal_bias, softmax_attend)
 from clipcap_tpu_torch.ops.layers import Linear, embed, empty_param, round_up
 from clipcap_tpu_torch.ops.mla import mla_decode
 from clipcap_tpu_torch.ops.moe import combine, expert_groups, grouped_expert_mlp
@@ -448,8 +445,8 @@ def init_latent_cache(cfg: DeepseekV2Config, batch: int, max_len: int, dtype=tor
                       device="cpu") -> List[Tensor]:
     """Zeroed per-layer latent caches ``[rows, slots, C + r]``.  Plain: rows
     = ``batch``, slot t = position t.  With ``beam_size`` K: rows = ``batch
-    // K``, the prefix's ``prefix_slots`` P slots first, then time-major
-    slot ``P + (t - P)·K + kb`` (GPT-2's folded beam layout)."""
+    // K`` in the beam layout of ``models/decoding.py``, the folded prefix
+    in slots ``[0, prefix_slots)``."""
     if beam_size is None:
         rows, slots = batch, round_up(max_len, CACHE_SLOT_QUANTUM)
     else:
@@ -457,6 +454,18 @@ def init_latent_cache(cfg: DeepseekV2Config, batch: int, max_len: int, dtype=tor
         slots = round_up(prefix_slots + beam_size * max_len, CACHE_SLOT_QUANTUM)
     return [torch.zeros(rows, slots, cfg.latent_dim, dtype=dtype, device=device)
             for _ in range(cfg.num_hidden_layers)]
+
+
+def dsv2_beam_cache(cfg: DeepseekV2Config, bp, groups: int, prefix_len: int, tile_major: bool,
+                    dtype, device) -> Tuple[List[Tensor], None]:
+    """``gpt2.gpt2_beam_cache``'s contract with the folded-prefix latent cache
+    alone: the other forms raise before anything is allocated."""
+    for bad, what in ((bp.int8_kv, "int8_kv"), (bp.consolidate_every > 0, "consolidate_every > 0"),
+                      (tile_major, "tile_major"), (not bp.fold_prefix, "fold_prefix=False")):
+        if bad:
+            _unsupported(f"{what} in beam search")
+    return init_latent_cache(cfg, groups * bp.beam_size, bp.max_new_tokens, dtype,
+                             bp.beam_size, prefix_len, device), None
 
 
 # ---------------------------------------------------------------------------
@@ -500,7 +509,7 @@ def _attend(attn: _MLA, h: Tensor, cfg: DeepseekV2Config, rope: Tensor, bias: Te
     k_nope, v = attn.kv_b_proj(c).view(B, T, H, nope + vd).split([nope, vd], dim=-1)
     q = torch.cat([q_nope, q_pe], dim=-1).transpose(1, 2)
     k = torch.cat([k_nope, k_pe[:, :, None].expand(B, T, H, -1)], dim=-1).transpose(1, 2)
-    o = _softmax_attend(q, k, v.transpose(1, 2), bias, softmax_scale(cfg))
+    o = softmax_attend(q, k, v.transpose(1, 2), bias, softmax_scale(cfg))
     return attn.o_proj(o.transpose(1, 2).reshape(B, S, H * vd))
 
 
@@ -585,12 +594,11 @@ def _decode_segment(model: DeepseekV2, j: int, carry: Optional[tuple], inputs: t
 
 
 def _beam_decode_layers(model: DeepseekV2, x: Tensor, kv_cache: List[Tensor], mask: Tensor,
-                        slot: int, K: int, rope: Tensor, graphs) -> Tensor:
+                        slot: int, K: int, rope: Tensor, steps) -> Tensor:
     """The layers and final norm of one beam decode step → the hidden state
-    [B, 1, D]; each layer's cache write and latent attention, and each
-    MoE layer's grouped experts, run eagerly between the segments."""
+    [B, 1, D]: the segments run through ``steps``; each layer's cache write and
+    latent attention, and each MoE layer's grouped experts, eagerly between them."""
     cfg = model.config
-    steps = EagerSteps() if graphs is None else graphs
 
     def segment(j, carry, *inputs):
         return _decode_segment(model, j, carry, inputs, K)
@@ -626,9 +634,7 @@ def dsv2_apply(model: DeepseekV2, *, input_ids: Optional[Tensor] = None,
     attention reads the slots ``[0, cache_index + S)`` (the prefill, and
     plain decoding).  Beam decode (``beam_size`` K, ``ancestry`` [B, Tl],
     ``cache_base`` P, one token): the absorbed step over the folded beam
-    cache, in segments that replay ``graphs`` (``gpt2.decode_step_graphs``)
-    where given; the hidden state of a graphed step is then the graphs'
-    static output, valid until their next step.  The consolidated shared
+    cache, its segments run as ``gpt2_apply``'s.  The consolidated shared
     prefix (``shared_kv``) and the replicated beam prefill raise
     ``NotImplementedError``.
     """
@@ -646,13 +652,9 @@ def dsv2_apply(model: DeepseekV2, *, input_ids: Optional[Tensor] = None,
     rope = model.rope_rows(offset + S, dev)[offset:offset + S]           # [S, 2, r]
 
     if kv_cache is not None and ancestry is not None:
-        if beam_size is None or S != 1:
-            raise ValueError("ancestry needs beam_size and one token per step")
-        mask = beam_mask(ancestry, beam_size, kv_cache[0].shape[1], offset, cache_base)
-        slot = cache_base + (cache_index - cache_base) * beam_size
-        on_card = contextlib.nullcontext() if graphs is None else torch.cuda.device(dev)
-        with annotate("dsv2.blocks"), on_card:
-            x = _beam_decode_layers(model, x, kv_cache, mask, slot, beam_size, rope, graphs)
+        with beam_step("dsv2.blocks", x, ancestry, beam_size, kv_cache[0].shape[1], offset,
+                       cache_base, graphs) as (mask, slot, steps):
+            x = _beam_decode_layers(model, x, kv_cache, mask, slot, beam_size, rope, steps)
         return (dsv2_logits(model, x) if return_logits else x), kv_cache
     if graphs is not None:
         raise ValueError("graphs serve beam decode steps only (ancestry and one token)")

@@ -13,15 +13,10 @@ dict.  The forward is :func:`gpt2_apply`, as in the JAX package:
   on the card, its plain twin for a cache on the CPU.  The cache is updated
   in place (the JAX package returns a new buffer; here the returned list is
   the one passed in).
-* beam decode (``beam_size`` K + ``ancestry``): rows are grouped K per
-  sample, beam caches are time-major (slot ``t·K + kb``), and the beam
-  reorder is an ancestry mask over the slots — the cache never moves.
-  With ``cache_base`` P the first P slots hold the prefix once, visible to
-  every beam (the folded-prefix layout, ``init_kv_cache(prefix_slots=P)``).
-  A beam decode step runs as L + 1 dense segments split at the layers'
-  decode attentions; on the card they replay CUDA graphs
-  (:func:`decode_step_graphs`), while the cache writes and the attention
-  run eagerly between them.
+* beam decode (``beam_size`` K + ``ancestry``): the beam layout of
+  ``models/decoding.py``, with the folded prefix from
+  ``init_kv_cache(prefix_slots=P)``.  A step runs as L + 1 dense segments
+  split at the layers' decode attentions (CUDA graphs on the card).
 * tile-major caches (``init_kv_cache(tile_major=True)``, or env
   ``CLIPCAP_CACHE_TILE_MAJOR=1``): the same bf16/fp32 cache stored as
   ``[rows, slots // u, n_head, u, 2·head_dim]`` with the JAX package's
@@ -44,8 +39,6 @@ dict.  The forward is :func:`gpt2_apply`, as in the JAX package:
 """
 from __future__ import annotations
 
-import collections
-import contextlib
 import dataclasses
 import math
 import os
@@ -56,6 +49,10 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from clipcap_tpu_torch.models.decoding import (CACHE_SLOT_QUANTUM, NEG_INF, DecodeGraphs,
+                                              StepGraphs, beam_slot, beam_step, causal_bias,
+                                              softmax_attend)
+from clipcap_tpu_torch.models.decoding import beam_mask  # noqa: F401 (portbench reads it here)
 from clipcap_tpu_torch.ops.flash_decode import (INT8_SLOT_QUANTUM, _pick_u_tile, flash_decode,
                                                 flash_decode_two_phase)
 from clipcap_tpu_torch.ops.layers import (ACTIVATIONS, Conv1D, LayerNorm, embed,
@@ -67,9 +64,6 @@ Tensor = torch.Tensor
 # One layer's cache: the interleaved K|V buffer, or (int8 rows, k-scales,
 # v-scales) for an int8 cache.
 LayerCache = Union[Tensor, Tuple[Tensor, Tensor, Tensor]]
-
-NEG_INF = -1e9  # finite mask value: keeps softmax well-defined in bf16
-
 
 @dataclasses.dataclass(frozen=True)
 class GPT2Config:
@@ -201,12 +195,6 @@ class GPT2(nn.Module):
 # KV cache
 # ---------------------------------------------------------------------------
 
-# Slot counts are padded to this quantum so the cache holds the same slot
-# count as the JAX package's, and the masks of the two line up slot for
-# slot.  Slots past the logical capacity are never written and never read.
-CACHE_SLOT_QUANTUM = 16
-
-
 def _beam_cache_slots(n: int, quantum: int) -> int:
     """Slot count of a beam cache: ``n`` rounded up to ``quantum``, or to a
     multiple of 128 when that admits no divisor tile of 64..128 slots (the
@@ -245,9 +233,8 @@ def init_kv_cache(cfg: GPT2Config, batch: int, max_len: int,
     2·head_dim]``.
 
     Plain: rows = ``batch``, slot t = position t.  With ``beam_size`` K:
-    rows = ``batch // K`` sample groups, time-major slot ``t·K + kb``.
-    With ``prefix_slots`` P (beam only): slots ``[0, P)`` hold the prefix
-    once and position ``t ≥ P`` of beam row kb lives at ``P + (t-P)·K + kb``.
+    rows = ``batch // K`` sample groups in the beam layout of
+    ``models/decoding.py``, the folded prefix in slots ``[0, prefix_slots)``.
     ``int8``: each layer is ``(int8 rows, sk, sv)`` with fp32 scales
     ``[rows, n_head, slots]``, and slots are padded to 128 (the JAX
     package's int8 quantum, so the masks of the two line up).
@@ -288,6 +275,21 @@ def init_shared_kv(cfg: GPT2Config, groups: int, max_len: int, dtype=torch.bfloa
     return _zeros_cache(shape, cfg.n_layer, dtype, int8, device)
 
 
+def gpt2_beam_cache(cfg: GPT2Config, bp, groups: int, prefix_len: int, tile_major: bool,
+                    dtype, device) -> Tuple[List[LayerCache], Optional[List[LayerCache]]]:
+    """``(beam cache, shared cache or None)`` of a beam search over ``groups``
+    prefixes of ``prefix_len`` positions in the form ``bp`` (``BeamParams``)
+    asks: folded, replicated, or consolidated (the prefix in the shared one)."""
+    K, N, int8 = bp.beam_size, bp.max_new_tokens, bp.int8_kv
+    kw = dict(dtype=dtype, beam_size=K, int8=int8, device=device)
+    if bp.consolidate_every > 0:
+        shared = init_shared_kv(cfg, groups, prefix_len + N, dtype, int8, device)
+        return init_kv_cache(cfg, groups * K, N, tile_major=False, **kw), shared
+    P = prefix_len if bp.fold_prefix else 0      # folded: the prefix once, in slots [0, P)
+    return init_kv_cache(cfg, groups * K, N + prefix_len - P, prefix_slots=P,
+                         tile_major=tile_major, **kw), None
+
+
 def _split_cache(ckv: LayerCache) -> Tuple[Tensor, Optional[Tuple[Tensor, Tensor]]]:
     """A layer's cache → (rows, (sk, sv) or None)."""
     if isinstance(ckv, tuple):
@@ -314,7 +316,7 @@ def consolidate_kv_cache(kv_cache: List[LayerCache], shared_kv: List[LayerCache]
     """
     K = beam_size
     R, W = rows.shape
-    idx = torch.arange(W, device=rows.device) * K + rows.clamp(0, K - 1)      # [R, W]
+    idx = beam_slot(torch.arange(W, device=rows.device), K, shared=True) + rows.clamp(0, K - 1)
     for live, shared in zip(kv_cache, shared_kv):
         live_rows, live_scales = _split_cache(live)
         if live_rows.dim() == 5:
@@ -369,17 +371,6 @@ def _write_kv(ckv: LayerCache, new_kv: Tensor, slot0: int) -> None:
 
 def _split_qkv(qkv: Tensor, cfg: GPT2Config) -> Tuple[Tensor, Tensor, Tensor]:
     return tuple(qkv.split(cfg.n_embd, dim=-1))
-
-
-def _softmax_attend(q: Tensor, k: Tensor, v: Tensor, bias: Optional[Tensor],
-                    scale: float) -> Tensor:
-    """softmax(q·kᵀ·scale + bias)·v over the last two dims: fp32 logits and
-    softmax, weights cast back to q's dtype (the JAX package's XLA path)."""
-    logits = (torch.matmul(q, k.transpose(-1, -2)) * scale).float()
-    if bias is not None:
-        logits = logits + bias
-    w = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.matmul(w, v)
 
 
 def _mlp(x: Tensor, layer: _Block, cfg: GPT2Config) -> Tensor:
@@ -443,14 +434,14 @@ def _cached_block(x: Tensor, layer: _Block, ckv: LayerCache, cache_index: int,
                    for t in _split_qkv(layer.attn.c_attn(layer.ln_1(x)), cfg))
         _write_kv(ckv, torch.cat([k, v], dim=-1), cache_index)
         if S > 1:
-            attn = _softmax_attend(q, k, v, None if bias is None else bias[..., :S], scale)
+            attn = softmax_attend(q, k, v, None if bias is None else bias[..., :S], scale)
         else:                                # bias: the causal (+ pad) mask [Bm, 1, 1, T]
             attn = _decode_attend(q, ckv, bias[:, 0], cache_index + 1)
         attn_out = attn.transpose(1, 2).reshape(B, S, D)
     else:
         qg, kg, vg, new_flat = _beam_qkv(x, layer, cfg, beam_size)
-        _write_kv(ckv, new_flat, cache_base + (cache_index - cache_base) * beam_size)
-        attn = _softmax_attend(qg, kg, vg, None if bias is None else bias[0, 0, :, :S],
+        _write_kv(ckv, new_flat, beam_slot(cache_index, beam_size, cache_base))
+        attn = softmax_attend(qg, kg, vg, None if bias is None else bias[0, 0, :, :S],
                                scale)                        # [R, H, K, S, Dh]
         attn_out = attn.permute(0, 2, 3, 1, 4).reshape(B, S, D)
     return _block_out(x, attn_out, layer, cfg)
@@ -471,21 +462,20 @@ def _cached_block(x: Tensor, layer: _Block, ckv: LayerCache, cache_index: int,
 #
 # Between two segments the cache write and the decode attention run eagerly
 # on the step's host ints (slot, bounds), so every cache form (strided,
-# tile-major, int8, consolidated) shares the segments.  On the card the
-# segments replay CUDA graphs (:class:`StepGraphs`): the host then dispatches
-# a few eager ops a layer instead of every op of a block.
+# tile-major, int8, consolidated) shares the segments (``models/decoding.py``
+# runs them, as CUDA graphs on the card).
 
 
-def _decode_segment(model: "GPT2", i: int, x: Tensor, attn: Optional[Tensor], K: int):
+def _decode_segment(model: "GPT2", i: int, carry: Optional[tuple], inp: Tensor, K: int):
     """Segment ``i`` of a beam decode step → ``(x, q1, kv_rows)``: the
     residual stream [B, 1, D] entering block i, its queries [R, H, K, Dh]
     and its K|V rows [R, H, K, 2·Dh]; for i = L, ``(hidden, None, None)``
-    after ``ln_f``.  ``attn`` [R, H, K, Dh] is block i - 1's attention
-    output (None for i = 0)."""
+    after ``ln_f``.  ``inp`` is the step's input [B, 1, D] for i = 0, else
+    block i - 1's attention output [R, H, K, Dh] after segment i - 1's
+    outputs ``carry``."""
     cfg = model.config
-    if i > 0:
-        B, _, D = x.shape
-        x = _block_out(x, attn.transpose(1, 2).reshape(B, 1, D), model.h[i - 1], cfg)
+    x = inp if i == 0 else _block_out(carry[0], inp.transpose(1, 2).reshape(carry[0].shape),
+                                      model.h[i - 1], cfg)
     if i == cfg.n_layer:
         return model.ln_f(x), None, None
     qg, _, _, kv_rows = _beam_qkv(x, model.h[i], cfg, K)
@@ -493,23 +483,16 @@ def _decode_segment(model: "GPT2", i: int, x: Tensor, attn: Optional[Tensor], K:
 
 
 def _beam_decode_blocks(model: "GPT2", x: Tensor, kv_cache: List[LayerCache], mask: Tensor,
-                        cache_index: int, K: int, cache_base: int,
-                        shared_kv: Optional[List[LayerCache]], step: Optional[_SharedStep],
-                        graphs: Optional["StepGraphs"]) -> Tensor:
+                        slot: int, K: int, shared_kv: Optional[List[LayerCache]],
+                        step: Optional[_SharedStep], steps) -> Tensor:
     """The blocks and ``ln_f`` of one beam decode step → the final hidden
-    state [B, 1, D].  Segments replay ``graphs`` where given, else run
-    eagerly; each layer's cache write and decode attention run eagerly
-    between them.  ``mask`` is :func:`beam_mask`'s; with ``shared_kv`` the
-    live cache starts at slot 0 and ``step`` holds the shared region's
-    mask and bounds."""
-    steps = EagerSteps() if graphs is None else graphs
+    state [B, 1, D]: the segments run through ``steps``, each layer's cache
+    write (at ``slot``) and decode attention eagerly between them.  With
+    ``shared_kv``, ``step`` holds the shared region's mask and bounds."""
 
     def segment(i, carry, inp):
-        if carry is None:
-            return _decode_segment(model, i, inp, None, K)
-        return _decode_segment(model, i, carry[0], inp, K)
+        return _decode_segment(model, i, carry, inp, K)
 
-    slot = (0 if shared_kv is not None else cache_base) + (cache_index - cache_base) * K
     x, q1, kv_rows = steps.run(segment, 0, x)
     for i, ckv in enumerate(kv_cache):
         _write_kv(ckv, kv_rows, slot)
@@ -528,181 +511,14 @@ def _beam_decode_blocks(model: "GPT2", x: Tensor, kv_cache: List[LayerCache], ma
     return x
 
 
-class EagerSteps:
-    """:class:`StepGraphs`' interface with the segments run eagerly (off
-    the card, or with graphs turned off)."""
-
-    def __init__(self):
-        self.carry = None
-
-    def run(self, segment, i: int, *inputs: Tensor) -> tuple:
-        """Segment ``i`` on ``inputs`` after the previous segment's outputs."""
-        self.carry = segment(i, self.carry if i else None, *inputs)
-        return self.carry
-
-
-class StepGraphs:
-    """The dense segments of a beam decode step as CUDA graphs, for one key
-    (rows, beam size, dtype, device) of one model.
-
-    ``segment(i, carry, *inputs)`` computes segment ``i`` from ``carry``,
-    the previous segment's outputs (None for segment 0), and its own
-    inputs: the step's inputs for segment 0, else what ran eagerly since
-    the previous segment (GPT-2: the layer's attention output).  The first
-    step captures the segments in replay order into one memory pool, each
-    after a warm-up run on the capture stream, and replays each right after
-    its capture; later steps replay them.  :meth:`run` copies the inputs
-    into static buffers, one per (segment 0 or not, argument, shape,
-    dtype): the segments after the first share them, as they run one after
-    the other.  A segment's outputs stay valid until the next segment of
-    the pool replays, so one decode step runs at a time per key.  A capture
-    cut short is taken again from segment 0."""
-
-    def __init__(self, segments: int):
-        self.segments = segments
-        self.graphs: List[torch.cuda.CUDAGraph] = []
-        self.outs: List[tuple] = []
-        self.inputs: Dict[tuple, Tensor] = {}
-        self.pool = self.stream = None
-
-    @property
-    def ready(self) -> bool:
-        """Whether every segment is captured (a step replays only)."""
-        return len(self.graphs) == self.segments
-
-    def run(self, segment, i: int, *inputs: Tensor) -> tuple:
-        """Segment ``i`` on ``inputs`` → its static outputs."""
-        if i == 0 and not self.ready:
-            self.graphs, self.outs = [], []
-        static = []
-        for n, t in enumerate(inputs):
-            key = (i == 0, n, t.shape, t.dtype)
-            buf = self.inputs.get(key)
-            if buf is None:
-                buf = self.inputs[key] = torch.empty_like(t)
-            buf.copy_(t)
-            static.append(buf)
-        carry = self.outs[i - 1] if i else None
-        if i < len(self.graphs):
-            self.graphs[i].replay()
-        else:
-            self._capture(lambda: segment(i, carry, *static))
-        return self.outs[i]
-
-    def _capture(self, fn) -> None:
-        main = torch.cuda.current_stream()
-        if self.stream is None:
-            self.stream = torch.cuda.Stream()
-            self.pool = torch.cuda.graph_pool_handle()
-        self.stream.wait_stream(main)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(self.stream):
-            fn()                                            # warm-up on the capture stream
-            graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
-            try:
-                out = fn()
-            finally:
-                graph.capture_end()
-        main.wait_stream(self.stream)
-        graph.replay()
-        self.graphs.append(graph)
-        self.outs.append(out)
-
-
-class DecodeGraphs:
-    """A model's :class:`StepGraphs`, one per key, the :attr:`KEEP` most
-    recently used.  A graph reads each weight at the address it had at
-    capture, so all keys were captured over the same weight storage: when
-    any tensor the segments read (``model.decode_tensors()``: GPT-2's
-    blocks and ``ln_f``) lies elsewhere than then, or has another dtype,
-    shape or stride, every key is dropped and captured again.  That covers
-    tensors put in place (``load_state_dict(assign=True)``) and storage
-    swapped under the same parameters (``model.to(dtype)``, ``.cpu()`` then
-    ``.cuda()``).  Writes into the same storage need no recapture: the
-    graphs read them where they are.  A copy of the model starts with
-    none."""
-
-    KEEP = 4
-
-    def __init__(self):
-        self._weights: tuple = ()
-        self._keys: "collections.OrderedDict[tuple, StepGraphs]" = collections.OrderedDict()
-
-    def __deepcopy__(self, memo):
-        return DecodeGraphs()
-
-    def get(self, model: nn.Module, key: tuple) -> StepGraphs:
-        weights = tuple((t.data_ptr(), t.device, t.dtype, t.shape, t.stride())
-                        for t in model.decode_tensors())
-        if weights != self._weights:
-            self._weights = weights
-            self._keys.clear()
-        graphs = self._keys.pop(key, None) or StepGraphs(model.decode_segments)
-        self._keys[key] = graphs
-        while len(self._keys) > self.KEEP:
-            self._keys.popitem(last=False)
-        return graphs
-
-
-def decode_step_graphs(model: nn.Module, rows: int, beam_size: int, dtype: torch.dtype,
-                       device) -> Optional[StepGraphs]:
-    """The CUDA graphs for beam decode steps of ``rows`` rows at
-    ``beam_size`` in ``dtype`` on ``device`` (pass them to
-    :func:`gpt2_apply`, or ``deepseek_v2.dsv2_apply`` for a model of that
-    family, as ``graphs``); None off a CUDA device, where the
-    segments run eagerly.  No cache form changes a segment's shapes, so
-    every form shares a key's graphs."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return None
-    return model.decode_graphs.get(model, (rows, beam_size, dtype, device))
-
-
 def _block(x: Tensor, layer: _Block, bias: Optional[Tensor], cfg: GPT2Config) -> Tensor:
     """One block over the full sequence (no cache)."""
     B, S, D = x.shape
     H, Dh = cfg.n_head, cfg.head_dim
     q, k, v = (t.reshape(B, S, H, Dh).transpose(1, 2)
                for t in _split_qkv(layer.attn.c_attn(layer.ln_1(x)), cfg))
-    attn = _softmax_attend(q, k, v, bias, 1.0 / math.sqrt(Dh))
+    attn = softmax_attend(q, k, v, bias, 1.0 / math.sqrt(Dh))
     return _block_out(x, attn.transpose(1, 2).reshape(B, S, D), layer, cfg)
-
-
-def causal_bias(S: int, T: int, offset: int = 0, device="cpu") -> Tensor:
-    """Additive causal bias [1, 1, S, T]: query i may attend key j iff
-    j <= offset + i."""
-    q_pos = torch.arange(S, device=device)[:, None] + offset
-    k_pos = torch.arange(T, device=device)[None, :]
-    bias = torch.where(k_pos <= q_pos, 0.0, NEG_INF).to(torch.float32)
-    return bias[None, None]
-
-
-def beam_mask(ancestry: Tensor, beam_size: int, slots: int, offset: int,
-              cache_base: int = 0, shared_len: Union[int, Tensor, None] = None) -> Tensor:
-    """The per-step beam selection mask ``[R, K, slots]`` fp32: 0 where
-    time-major slot ``cache_base + (t - cache_base)·K + j`` holds beam k's
-    K/V for a position t ≤ ``offset`` (``ancestry[b, t - cache_base] == j``)
-    or lies in the folded prefix ``[0, cache_base)``; NEG_INF elsewhere.
-
-    With ``shared_len`` c (an int or a per-sample ``[R]`` tensor) the prefix
-    and the positions below c live in the shared cache: the live region
-    starts at slot 0 and hides every position below c."""
-    K = beam_size
-    B, Tl = ancestry.shape
-    R = B // K
-    fold = cache_base if shared_len is None else 0
-    anc = ancestry.reshape(R, K, Tl).repeat_interleave(K, dim=-1)
-    anc = torch.nn.functional.pad(anc, (fold, slots - fold - K * Tl), value=-1)
-    s_iota = torch.arange(slots, device=ancestry.device)
-    s_rel = (s_iota - fold).clamp_min(0)                    # live-region slot
-    pos = cache_base + s_rel // K                           # absolute position
-    visible = (anc == s_rel % K) & (pos <= offset)
-    if fold:
-        visible = visible | (s_iota < fold)
-    if shared_len is not None:
-        c = torch.as_tensor(shared_len, device=ancestry.device).reshape(-1, 1, 1)
-        visible = visible & (pos >= c)
-    return torch.where(visible, 0.0, NEG_INF).to(torch.float32)
 
 
 def shared_mask(shared_len: Union[int, Tensor], beam_size: int, slots: int,
@@ -719,10 +535,9 @@ def _shared_step(shared_kv: List[LayerCache], shared_len: Union[int, Tensor],
                  beam_size: int, cache_base: int, device) -> _SharedStep:
     slots = _split_cache(shared_kv[0])[0].shape[2]
     mask = shared_mask(shared_len, beam_size, slots, device)
-    if isinstance(shared_len, Tensor):
-        c = shared_len.to(device=device, dtype=torch.int32).contiguous()
-        return _SharedStep(mask, c, ((c - cache_base) * beam_size).to(torch.int32))
-    return _SharedStep(mask, int(shared_len), (int(shared_len) - cache_base) * beam_size)
+    c = (shared_len.to(device=device, dtype=torch.int32).contiguous()
+         if isinstance(shared_len, Tensor) else int(shared_len))
+    return _SharedStep(mask, c, beam_slot(c, beam_size, cache_base, True))   # int32 for a tensor
 
 
 def gpt2_apply(model: GPT2, *, input_ids: Optional[Tensor] = None,
@@ -748,11 +563,9 @@ def gpt2_apply(model: GPT2, *, input_ids: Optional[Tensor] = None,
     ``shared_len`` c (an int, or a per-sample int ``[R]`` tensor on the
     cache's device): positions below c are read from the shared cache, the
     live cache holds positions from ``cache_base`` on from slot 0.  A beam
-    decode step splits at each layer's decode attention into dense segments
-    (:func:`_beam_decode_blocks`): they replay ``graphs``
-    (:func:`decode_step_graphs`, a CUDA cache) where given, else run eagerly;
-    the hidden state of a graphed step is then the graphs' static output,
-    valid until their next step.
+    decode step's segments (:func:`_beam_decode_blocks`) replay ``graphs``
+    (``decoding.decode_step_graphs``) where given; the hidden state of a
+    graphed step is the graphs' static output, valid until their next step.
     """
     cfg = model.config
     if inputs_embeds is None:
@@ -776,18 +589,12 @@ def gpt2_apply(model: GPT2, *, input_ids: Optional[Tensor] = None,
     x = x + model.wpe.weight[offset:offset + S].to(dtype)[None]
 
     if kv_cache is not None and ancestry is not None:
-        if beam_size is None or S != 1:
-            raise ValueError("ancestry needs beam_size and one token per step")
-        step = None
-        if shared_kv is not None:
-            step = _shared_step(shared_kv, shared_len, beam_size, cache_base, dev)
-        mask = beam_mask(ancestry, beam_size, slots, offset, cache_base,
-                         shared_len if shared_kv is not None else None)
-        # Graph capture and replay go to the current device: make it the cache's.
-        on_card = contextlib.nullcontext() if graphs is None else torch.cuda.device(dev)
-        with annotate("gpt2.blocks"), on_card:
-            x = _beam_decode_blocks(model, x, kv_cache, mask, cache_index, beam_size,
-                                    cache_base, shared_kv, step, graphs)
+        with beam_step("gpt2.blocks", x, ancestry, beam_size, slots, offset, cache_base, graphs,
+                       shared_len if shared_kv is not None else None) as (mask, slot, steps):
+            step = None if shared_kv is None else _shared_step(shared_kv, shared_len, beam_size,
+                                                                cache_base, dev)
+            x = _beam_decode_blocks(model, x, kv_cache, mask, slot, beam_size, shared_kv, step,
+                                    steps)
         return (lm_logits(model, x) if return_logits else x), kv_cache
     if graphs is not None:
         raise ValueError("graphs serve beam decode steps only (ancestry and one token)")

@@ -2,8 +2,7 @@
 
 The cache holds, per sample and slot, the normalised latent ``c`` (rank C)
 and the roped shared key ``k_pe`` (r values): ``[R, slots, C + r]``, in
-the beam layout of ``models/gpt2.py`` (the folded prefix in slots
-``[0, P)``, then time-major slot ``t·K + kb``; ``gpt2.beam_mask`` selects
+the beam layout of ``models/decoding.py`` (``decoding.beam_mask`` selects
 each beam's ancestors).  With the up-projections absorbed into the query
 (``q_lat = q_nope·W_UKᵀ`` per head, beside the roped ``q_pe``), a head's
 score is one dot product with the cached row and its output the weighted

@@ -3,7 +3,7 @@
 A beam decode step of ``models/gpt2.py`` runs its blocks as L + 1 dense
 segments split at each layer's decode attention
 (``_beam_decode_blocks``); on the card the segments replay CUDA graphs
-(``StepGraphs``).
+(``models/decoding.py::StepGraphs``).
 
 * On the CPU the segmented step is held to ``_unsplit_step``, a plain copy
   of the unsplit beam decode branch of ``_cached_block`` that it replaced:
@@ -24,7 +24,7 @@ import torch
 from clipcap_tpu_torch.convert import gpt2_from_params
 from clipcap_tpu_torch.inference import beam as beam_mod
 from clipcap_tpu_torch.inference.beam import BeamParams, beam_search_batched
-from clipcap_tpu_torch.models import gpt2
+from clipcap_tpu_torch.models import decoding, gpt2
 from clipcap_tpu_torch.models.gpt2 import (GPT2_PRESETS, GPT2Config, gpt2_apply,
                                            gpt2_embed_tokens, init_gpt2, init_kv_cache,
                                            init_shared_kv)
@@ -76,7 +76,7 @@ def _unsplit_step(model, emb, kv_cache, cache_index, K, ancestry, cache_base, sh
     step = None
     if shared_kv is not None:
         step = gpt2._shared_step(shared_kv, shared_len, K, cache_base, x.device)
-    mask = gpt2.beam_mask(ancestry, K, gpt2._cache_slots(kv_cache[0]), cache_index,
+    mask = decoding.beam_mask(ancestry, K, gpt2._cache_slots(kv_cache[0]), cache_index,
                           cache_base, shared_len if shared_kv is not None else None)
     shared_layers = [None] * cfg.n_layer if step is None else shared_kv
     for layer, ckv, sh in zip(model.h, kv_cache, shared_layers):
@@ -140,7 +140,7 @@ def test_segmented_step_matches_unsplit_step(lm, form, dtype):
 def test_no_graphs_on_the_cpu(lm):
     """A beam search on the CPU runs its segments eagerly: no graph is
     captured or replayed, and the search counts its steps as before."""
-    assert gpt2.decode_step_graphs(lm, 6, 3, torch.float32, "cpu") is None
+    assert decoding.decode_step_graphs(lm, 6, 3, torch.float32, "cpu") is None
     before = (beam_search_batched.graph_steps, beam_search_batched.graph_captures,
               beam_search_batched.decode_steps)
     prefix = torch.randn(2, 4, lm.config.n_embd, generator=torch.Generator().manual_seed(1))
@@ -157,7 +157,7 @@ def test_graphs_leave_prefill_and_plain_decode_alone(lm):
     cache = init_kv_cache(lm.config, 2, 8, dtype=torch.float32)
     with pytest.raises(ValueError, match="beam decode steps only"):
         gpt2_apply(lm, input_ids=torch.zeros(2, 3, dtype=torch.long), kv_cache=cache,
-                   graphs=gpt2.StepGraphs(lm.config.n_layer + 1))
+                   graphs=decoding.StepGraphs(lm.config.n_layer + 1))
 
 
 def test_graph_keys_are_bounded_and_follow_the_weights():

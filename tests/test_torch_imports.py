@@ -65,6 +65,7 @@ def _imports(path: Path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
 
 
 @pytest.mark.parametrize("tree", ["clipcap_tpu_torch", "chip_smoke.py"])
@@ -76,6 +77,19 @@ def test_no_source_of_the_port_names_clipcap_tpu_in_an_import(tree):
         bad = [m for m in _imports(path) if m.split(".")[0] in ("clipcap_tpu", "jax")]
         assert not bad, f"{path.relative_to(REPO)} imports {bad}"
         assert "spec_from_file_location" not in path.read_text(), path
+
+
+@pytest.mark.parametrize("module,families", [
+    ("decoding", ("gpt2", "deepseek_v2")),
+    ("deepseek_v2", ("gpt2",)),
+])
+def test_decoder_families_meet_only_in_the_shared_decoding_module(module, families):
+    """``models/decoding.py`` holds what every decoder family shares and
+    imports no family; DeepSeek-V2 imports nothing of GPT-2."""
+    path = REPO / "clipcap_tpu_torch" / "models" / f"{module}.py"
+    banned = {f"clipcap_tpu_torch.models.{f}" for f in families}
+    bad = [m for m in _imports(path) if m in banned]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
 def test_tokenizer_copies_give_the_same_ids():

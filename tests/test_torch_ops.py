@@ -17,7 +17,7 @@ from clipcap_tpu.ops import attention as jattn
 from clipcap_tpu.ops import layers as jlayers
 from clipcap_tpu.ops import sampling as jsampling
 from clipcap_tpu.ops.flash_decode import flash_decode as jflash_decode
-from clipcap_tpu_torch.models.gpt2 import NEG_INF, beam_mask
+from clipcap_tpu_torch.models.decoding import NEG_INF, beam_mask
 from clipcap_tpu_torch.ops import attention, layers, sampling
 from clipcap_tpu_torch.ops.flash_decode import flash_decode, flash_decode_ref
 

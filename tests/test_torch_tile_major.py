@@ -28,7 +28,7 @@ from clipcap_tpu_torch import convert
 from clipcap_tpu_torch.inference import engine
 from clipcap_tpu_torch.inference.beam import BeamParams, beam_search_batched
 from clipcap_tpu_torch.models import gpt2
-from clipcap_tpu_torch.models.gpt2 import NEG_INF
+from clipcap_tpu_torch.models.decoding import NEG_INF
 from clipcap_tpu_torch.ops import flash_decode as fd
 from clipcap_tpu_torch.ops.flash_decode import _pick_u_tile, flash_decode, flash_decode_ref
 
