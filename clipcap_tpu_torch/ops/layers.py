@@ -48,14 +48,18 @@ ACTIVATIONS = {
 
 
 def layer_norm(x: Tensor, scale: Tensor, bias: Tensor, eps: float = 1e-5) -> Tensor:
-    """LayerNorm over the trailing dim, computed in float32."""
-    orig = x.dtype
-    x = x.float()
-    mean = x.mean(dim=-1, keepdim=True)
-    var = (x - mean).square().mean(dim=-1, keepdim=True)
-    y = (x - mean) * torch.rsqrt(var + eps)
-    y = y * scale.float() + bias.float()
-    return y.to(orig)
+    """LayerNorm over the trailing dim: normalised and scaled in float32,
+    returned in the dtype of ``x``.
+
+    One ATen ``layer_norm``: one launch, and its fused backward under
+    autograd.  Weights of ``x``'s dtype go in as they are (ATen widens a
+    bf16 ``x`` and its weights to float32 inside the kernel).  Weights of
+    another dtype are never rounded to ``x``'s: CUDA's kernel takes one
+    dtype, so ``x`` is widened to float32 and the result cast back."""
+    shape = (x.shape[-1],)
+    if scale.dtype == x.dtype and bias.dtype == x.dtype:
+        return F.layer_norm(x, shape, scale, bias, eps)
+    return F.layer_norm(x.float(), shape, scale.float(), bias.float(), eps).to(x.dtype)
 
 
 class Int8Weight(nn.Module):

@@ -8,6 +8,7 @@ compute the same fp32 arithmetic in another summation order, so they
 agree to a few ulps of O(1) values (1e-5 abs), or 1e-4 where a 64-long dot
 product feeds an exp.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -142,6 +143,80 @@ def test_layers_match_jax():
                   jlayers.embed(jnp.asarray(table), jnp.asarray(ids), jnp.float32)))
     for got, want in pairs:
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def _layer_norm_formula(x, scale, bias, eps=1e-5):
+    """The plain fp32 layer norm, op by op (the JAX package's formula)."""
+    orig = x.dtype
+    x = x.float()
+    mean = x.mean(dim=-1, keepdim=True)
+    var = (x - mean).square().mean(dim=-1, keepdim=True)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    y = y * scale.float() + bias.float()
+    return y.to(orig)
+
+
+def _bf16(t):
+    """A bf16 torch tensor as a bf16 JAX array, value for value."""
+    return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
+def _within_one_bf16_ulp(got, want):
+    """Each element of bf16 ``got`` within one bf16 ulp of ``want`` (floored
+    at 2^-20 near zero, where the O(1) terms cancel: a few fp32 ulps of them
+    before the rounding)."""
+    assert got.dtype == torch.bfloat16
+    want = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -13))) - 7)
+    assert bool(((got.float() - want).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("case", ["bf16_weights", "fp32_weights", "fp32_grads",
+                                  "bf16_x_fp32_weights_grads"])
+@pytest.mark.parametrize("D", [768, 1024, 1600, 2048])
+def test_layer_norm_is_the_fp32_formula(D, case):
+    """bf16 ``x`` with bf16 or fp32 weights: within one bf16 ulp of the JAX
+    package's ``layer_norm`` on the same bf16 inputs.  fp32: the gradients of
+    ``x``, ``scale`` and ``bias`` those of the plain formula.  bf16 ``x`` with
+    fp32 weights (train's bf16 compute over fp32 norms): the gradients those
+    of the JAX function under ``jax.vjp``, ``x``'s within one bf16 ulp."""
+    g = torch.Generator().manual_seed(D)
+    x = torch.randn(4, 37, D, generator=g) * 3 + 0.5
+    scale = torch.randn(D, generator=g) * 0.2 + 1
+    bias = torch.randn(D, generator=g) * 0.2
+    up = torch.randn(4, 37, D, generator=g)
+    if case == "fp32_grads":
+        grads = []
+        for fn in (layers.layer_norm, _layer_norm_formula):
+            leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+            (fn(*leaves) * up).sum().backward()
+            grads.append([t.grad for t in leaves])
+        for got, want in zip(*grads):
+            np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=1e-5)
+        return
+    x = x.bfloat16()
+    if case == "bf16_x_fp32_weights_grads":
+        up = up.bfloat16()
+        leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+        y = layers.layer_norm(*leaves)
+        assert y.dtype == torch.bfloat16
+        y.backward(up)
+        _, vjp = jax.vjp(jlayers.layer_norm, _bf16(x), jnp.asarray(scale.numpy()),
+                         jnp.asarray(bias.numpy()))
+        dx, dscale, dbias = vjp(_bf16(up))
+        _within_one_bf16_ulp(leaves[0].grad, _t(dx.astype(jnp.float32)))
+        for got, want in ((leaves[1].grad, dscale), (leaves[2].grad, dbias)):
+            assert got.dtype == torch.float32
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-5)
+        return
+    if case == "bf16_weights":
+        scale, bias = scale.bfloat16(), bias.bfloat16()
+    got = layers.layer_norm(x, scale, bias)
+    want = jlayers.layer_norm(_bf16(x), _bf16(scale) if case == "bf16_weights"
+                              else jnp.asarray(scale.numpy()),
+                              _bf16(bias) if case == "bf16_weights" else jnp.asarray(bias.numpy()))
+    assert want.dtype == jnp.bfloat16
+    _within_one_bf16_ulp(got, _t(want.astype(jnp.float32)))
 
 
 def test_initializers_draw_as_jax():
