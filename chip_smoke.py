@@ -203,6 +203,19 @@ Phases (any failure exits non-zero before the last line):
    runs through ``torch._grouped_mm``.  Information: the kernels' time
    beside their bound, the twin, a per-expert ``torch.matmul`` loop and
    ``torch._grouped_mm`` (a yardstick the port never calls).
+14. Kimi-Linear's KDA decode step (``run_kimi(dev, tag)``): the kernel
+   against its twin at the caption cell's shape (96 samples × 5 beams, 32
+   heads of 128, bf16; a first step from zero state, then parents drawn
+   at random within each sample, two parents a sample, and all five beams
+   on one parent: outputs within 2e-2 of their scale, states within 1e-4,
+   windows bit for bit); graphed beam search on a small Kimi-Linear that
+   holds a share of its experts against the same segments run eagerly
+   (bit-identical); Kimi-Linear-48B-A3B at its published widths with 32 of
+   256 experts held, seeded bf16 on the card, under the caption cell's
+   beam search (b96, beam 5, 67 new tokens; its second search): the KDA
+   kernel launches exactly 20 KDA layers × (10 prefix positions + decode
+   steps) times.  Information: the kernel's time beside its bound (each
+   distinct parent's state read once, every row's written) and the twin.
 
 Every kernel's row carries its bound (bytes over 3.35 TB/s or operations
 over the data sheet's peak, whichever is larger) and the time of one
@@ -3151,6 +3164,170 @@ def dsv2_main_path(dev, tag: str) -> dict:
             "main_path_s": seconds}
 
 
+KIMI_R, KIMI_H, KIMI_D = 96, 32, 128      # the Kimi cell's samples, KDA heads, head size
+
+
+def kda_step_inputs(dev, g, kind: str, dtype=torch.bfloat16):
+    """One KDA decode step of the Kimi cell (96 samples × K beams, 32 heads
+    of 128): the projections, taps, decay, β, and each row's parent within
+    its sample, ``random``, ``repeated`` (two parents a sample) or ``one``
+    (all K beams on one parent)."""
+    B, HD = KIMI_R * K, KIMI_H * KIMI_D
+    x = torch.randn(3, B, HD, generator=g, device=dev).to(dtype) * 2
+    taps = (torch.randn(3, HD, 1, 4, generator=g, device=dev) * 0.5).to(dtype)
+    gl = -torch.rand(B, KIMI_H, KIMI_D, generator=g, device=dev)
+    beta = torch.rand(B, KIMI_H, generator=g, device=dev)
+    beams = {"random": torch.randint(0, K, (B,), generator=g, device=dev),
+             "repeated": torch.randint(0, 2, (B,), generator=g, device=dev) * 2,
+             "one": torch.full((B,), 3, device=dev)}[kind]
+    parent = (torch.arange(B, device=dev) // K * K + beams).to(torch.int32)
+    return x, taps, gl, beta, parent
+
+
+def run_kimi(dev, tag: str) -> dict:
+    """Phase 14 (see the module docstring); returns the kernel's row."""
+    from clipcap_tpu_torch.inference import beam as beam_mod
+    from clipcap_tpu_torch.models import kimi_linear as km
+    from clipcap_tpu_torch.ops import kda
+
+    B, HD = KIMI_R * K, KIMI_H * KIMI_D
+    g = torch.Generator(device=dev).manual_seed(14)
+    row = {"name": "kda_decode", "route": "cuda",
+           "source": "clipcap_tpu_torch/csrc/kda_decode.cu", "replaces": None}
+    launches = kda.kda_decode.launches
+    for kind in ("random", "repeated", "one"):
+        x, taps, gl, beta, parent = kda_step_inputs(dev, g, kind)
+        win = [torch.randn(B, 3, 3, HD, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(2)]
+        st = [torch.randn(B, KIMI_H, KIMI_D, KIMI_D, generator=g, device=dev) * 0.1
+              for _ in range(2)]
+        twin_win, twin_st = [w.clone() for w in win], [s.clone() for s in st]
+        fresh = torch.full_like(parent, -1)
+        for t, par in enumerate((fresh, parent)):
+            args = (x[0], x[1], x[2], *taps, gl, beta, par)
+            got = kda.kda_decode(*args, win[t], win[1 - t], st[t], st[1 - t], K)
+            want = kda.kda_decode_ref(*args, twin_win[t], twin_win[1 - t], twin_st[t],
+                                      twin_st[1 - t], K)
+            err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+            st_err = float((st[1 - t] - twin_st[1 - t]).abs().max())
+            same_win = torch.equal(win[1 - t], twin_win[1 - t])
+            print(f"check [{tag}] kda_decode {kind} step {t}: output error {err:.3g} of its "
+                  f"scale, state error {st_err:.3g}, windows equal: {same_win}")
+            if not (err < TOL[torch.bfloat16] and st_err < 1e-4 and same_win):
+                raise AssertionError(f"kda_decode {kind} step {t}: error {err}, {st_err}")
+            row[f"rel_err_{kind}_{t}"] = err
+    if kda.kda_decode.launches != launches + 6:
+        raise AssertionError("kda_decode did not launch its kernel")
+
+    x, taps, gl, beta, parent = kda_step_inputs(dev, g, "random")
+    st = [torch.zeros(B, KIMI_H, KIMI_D, KIMI_D, device=dev) for _ in range(2)]
+    win = [torch.zeros(B, 3, 3, HD, device=dev, dtype=torch.bfloat16) for _ in range(2)]
+    args = (x[0], x[1], x[2], *taps, gl, beta, parent, win[0], win[1], st[0], st[1], K)
+    parents = int(parent.unique().numel())
+    state = KIMI_H * KIMI_D * KIMI_D * 4
+    nbytes = (parents + B) * state + (parents + B) * 3 * 3 * HD * 2 + 3 * B * HD * 2 \
+        + B * KIMI_H * (KIMI_D * 4 + 4) + B * HD * 2 + 3 * HD * 4 * 2
+    row.update(bound(nbytes, B * KIMI_H * 7 * KIMI_D * KIMI_D, torch.float32))
+    row.update(timed(lambda: kda.kda_decode(*args)))
+    row.update(timed(lambda: kda.kda_decode_ref(*args), "twin_"))
+    print(f"time [{tag}] kda_decode ({B} rows, {parents} distinct parents, {KIMI_H} heads of "
+          f"{KIMI_D}): " + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                                     for k, v in row.items() if k.endswith(("ms", "by"))))
+    del x, st, win, args
+
+    cfg = dataclasses.replace(
+        km.KIMI_PRESETS["kimi-linear-test"], hidden_size=256, intermediate_size=512,
+        moe_intermediate_size=128, num_attention_heads=2, kv_lora_rank=64, qk_nope_head_dim=32,
+        qk_rope_head_dim=16, v_head_dim=32, num_experts=16, num_experts_per_token=4,
+        experts_held=(4, 12), vocab_size=1000, name="smoke",
+        linear_attn_config=km.LinearAttnConfig(kda_layers=(1, 2, 4), full_attn_layers=(3,),
+                                               head_dim=128, num_heads=2))
+    lm = km.init_kimi(cfg, seed=14).to(dev, torch.bfloat16)
+    prefix = torch.randn(8, P, cfg.hidden_size, generator=g, device=dev)
+    bp = beam_mod.BeamParams(beam_size=K, max_new_tokens=12, stop_token=-1)
+    steps = beam_mod.beam_search_batched.graph_steps
+    beam_mod.beam_search_batched(lm, prefix, bp)
+    graphed = beam_mod.beam_search_batched(lm, prefix, bp)
+    with mock.patch.object(beam_mod, "decode_step_graphs", lambda *a, **k: None):
+        eager = beam_mod.beam_search_batched(lm, prefix, bp)
+    same = all(torch.equal(a, b) for a, b in zip(graphed, eager))
+    graphed_steps = beam_mod.beam_search_batched.graph_steps - steps
+    print(f"check [{tag}] Kimi-Linear beam search: {graphed_steps} graphed steps; "
+          f"graphed == eager: {same}")
+    if not same:
+        raise AssertionError("graphed Kimi-Linear decode steps differ from eager ones")
+    del lm
+    row.update(kimi_main_path(dev, tag))
+    return row
+
+
+def kimi_main_path(dev, tag: str) -> dict:
+    """Kimi-Linear-48B-A3B at its published widths, 32 of 256 experts held,
+    seeded bf16 on the card, under the caption cell's beam search (96
+    prefixes × beam K, N_NEW new tokens): the KDA kernel launches once per
+    KDA layer at each prefix position and each decode step.  Counts the
+    second search (the first captures the decode graphs)."""
+    from clipcap_tpu_torch.inference import beam as beam_mod
+    from clipcap_tpu_torch.models import kimi_linear as km
+    from clipcap_tpu_torch.ops import kda
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = km.KIMI_PRESETS["moonshotai/Kimi-Linear-48B-A3B-Instruct"]
+    g = torch.Generator(device=dev).manual_seed(18)
+    with torch.device("meta"):
+        shapes = [(n, p.shape) for n, p in km.KimiLinear(cfg).named_parameters()]
+    sd = {}
+    for n, shape in shapes:
+        leaf = n.rsplit(".", 1)[-1]
+        if "norm" in n:
+            sd[n] = torch.ones(shape, dtype=torch.bfloat16, device=dev)
+        elif leaf == "bias":
+            sd[n] = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+        elif leaf == "A_log":
+            sd[n] = torch.rand(shape, generator=g, device=dev).mul(15).add(1).log().bfloat16()
+        elif leaf == "dt_bias":
+            sd[n] = km.inverse_softplus_dt(torch.rand(shape, generator=g, device=dev)).bfloat16()
+        else:
+            sd[n] = torch.empty(shape, dtype=torch.bfloat16, device=dev).normal_(0.0, 0.02,
+                                                                                 generator=g)
+    with torch.device("meta"):
+        lm = km.KimiLinear(cfg)
+    lm.load_state_dict(sd, assign=True)
+    del sd
+    n_kda = sum(cfg.is_kda(i) for i in range(cfg.num_hidden_layers))
+    prefix = torch.randn(KIMI_R, P, cfg.hidden_size, generator=g, device=dev)
+    bp = beam_mod.BeamParams(beam_size=K, max_new_tokens=N_NEW, stop_token=-1)
+    f = beam_mod.beam_search_batched
+    f(lm, prefix, bp)
+    steps, graph_steps = f.decode_steps, f.graph_steps
+    kda.kda_decode.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = f(lm, prefix, bp)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kda.kda_decode.launches
+    decode_steps, graphed = f.decode_steps - steps, f.graph_steps - graph_steps
+    want = n_kda * (P + decode_steps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"check [{tag}] Kimi-Linear-48B-A3B at its widths (32 of 256 experts, seeded bf16), "
+          f"beam-{K} b{KIMI_R}, {N_NEW} new tokens: {launches} KDA launches (want {n_kda} KDA "
+          f"layers x ({P} prefix positions + {decode_steps} decode steps) = {want}); {graphed} "
+          f"of {decode_steps} steps graphed; {seconds:.3f} s, {KIMI_R / seconds:.2f} captions/s; "
+          f"peak {peak:.2f} GiB")
+    if launches != want:
+        raise AssertionError(f"kda_decode launched {launches} times, want {want}")
+    if not bool(torch.isfinite(res.scores).all()):
+        raise AssertionError("Kimi-Linear beam scores are not finite")
+    del lm, prefix, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "main_path_decode_steps": decode_steps,
+            "main_path_s": seconds}
+
+
 def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict) -> list:
     """Phases 3-13 in ``workdir``; returns the kernels' rows.  Phase 10's
     paths run beside the phases whose models and data they reuse: 10a
@@ -3225,6 +3402,9 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
     shutil.rmtree(pre_dir)
     print(host_memory())
     dsv2_row = run_dsv2(dev, name_limit)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kimi_row = run_kimi(dev, name_limit)
 
     def row(name, source, replaces, **numbers):
         return {"name": name, "route": "cuda", "source": f"clipcap_tpu_torch/csrc/{source}",
@@ -3264,6 +3444,7 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
             max_abs_err=errors["flash_decode_tile_major"],
             **xl_rows["flash_decode_tile_major"]),
         dsv2_row,
+        kimi_row,
     ]
 
 

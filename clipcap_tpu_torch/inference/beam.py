@@ -34,8 +34,11 @@ first step of each key; the counters ``graph_steps`` and
 ``graph_captures`` count the steps that replayed and that captured.
 
 Every decoder family runs through :func:`lm_functions`: GPT-2's forward is
-the module global ``gpt2_apply``, DeepSeek-V2's ``dsv2_apply``; a family's
-beam-cache constructor refuses the forms its cache lacks.
+the module global ``gpt2_apply``, DeepSeek-V2's ``dsv2_apply``,
+Kimi-Linear's ``kimi_apply``; a family's beam-cache constructor refuses the
+forms its cache lacks.  A family with recurrent state (Kimi-Linear) moves
+it by each beam's parent, which its forward reads from the ancestry table
+(``models/decoding.py::beam_parent``): the loop is the same for all.
 """
 from __future__ import annotations
 
@@ -50,6 +53,8 @@ from clipcap_tpu_torch.models.deepseek_v2 import (DeepseekV2, dsv2_apply, dsv2_b
 from clipcap_tpu_torch.models.gpt2 import (GPT2, cache_tile_major, consolidate_kv_cache,
                                            gpt2_apply, gpt2_beam_cache, gpt2_embed_tokens,
                                            lm_logits)
+from clipcap_tpu_torch.models.kimi_linear import (KimiLinear, kimi_apply, kimi_beam_cache,
+                                                  kimi_embed_tokens, kimi_logits)
 from clipcap_tpu_torch.utils.profiling import annotate
 
 Tensor = torch.Tensor
@@ -82,17 +87,22 @@ def _rank(avg: Tensor, flat_ids: Tensor, K: int):
     return avg.gather(1, order), flat_ids.gather(1, order)
 
 
-def lm_functions(lm: Union[GPT2, DeepseekV2]):
+LM = Union[GPT2, DeepseekV2, KimiLinear]
+
+
+def lm_functions(lm: LM):
     """``(forward, embed_tokens, logits, beam_cache)`` of ``lm``'s family,
     read from this module's globals at each call, so a caller that rebinds
-    ``gpt2_apply`` or ``dsv2_apply`` here is heard."""
+    ``gpt2_apply``, ``dsv2_apply`` or ``kimi_apply`` here is heard."""
     if isinstance(lm, DeepseekV2):
         return dsv2_apply, dsv2_embed_tokens, dsv2_logits, dsv2_beam_cache
+    if isinstance(lm, KimiLinear):
+        return kimi_apply, kimi_embed_tokens, kimi_logits, kimi_beam_cache
     return gpt2_apply, gpt2_embed_tokens, lm_logits, gpt2_beam_cache
 
 
 @torch.no_grad()
-def beam_search_batched(lm: Union[GPT2, DeepseekV2], prefix_embeds: Tensor, bp: BeamParams,
+def beam_search_batched(lm: LM, prefix_embeds: Tensor, bp: BeamParams,
                         dtype=torch.bfloat16) -> BeamResult:
     """R independent beam searches over ``prefix_embeds`` [R, P, D], batched
     into one decode loop."""
@@ -216,7 +226,7 @@ beam_search_batched.graph_captures = 0  # decode steps that captured them
 _counters = beam_search_batched        # the counters' owner, whatever rebinds the name
 
 
-def beam_search(lm: Union[GPT2, DeepseekV2], prefix_embeds: Tensor, bp: BeamParams,
+def beam_search(lm: LM, prefix_embeds: Tensor, bp: BeamParams,
                 dtype=torch.bfloat16) -> BeamResult:
     """Single-sample beam search: ``prefix_embeds`` [1, P, D]."""
     res = beam_search_batched(lm, prefix_embeds, bp, dtype=dtype)

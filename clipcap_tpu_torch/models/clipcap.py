@@ -8,8 +8,11 @@ and the reference's torch state dicts;
 :func:`clipcap_loss` is the training loss.
 
 ``language_model`` may also name a DeepSeek-V2 (``deepseek-ai/DeepSeek-V2-Lite``,
-``models/deepseek_v2.py``; seeded with a warning without weights on disk):
-:func:`init_clipcap` builds it and beam search serves it; training with it
+``models/deepseek_v2.py``; seeded with a warning without weights on disk)
+or a Kimi-Linear (``moonshotai/Kimi-Linear-48B-A3B-Instruct``,
+``models/kimi_linear.py``: one chip's share of its experts, 32 of 256;
+always seeded, with a warning): :func:`init_clipcap` builds it, with the
+mapper at its hidden width, and beam search serves it; training with it
 raises ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -26,6 +29,8 @@ from clipcap_tpu_torch.models.deepseek_v2 import (DeepseekV2, DeepseekV2Config, 
                                                   is_dsv2, load_dsv2)
 from clipcap_tpu_torch.models.gpt2 import (GPT2, GPT2Config, get_gpt2_config, gpt2_apply,
                                            gpt2_embed_tokens, init_gpt2, lm_logits)
+from clipcap_tpu_torch.models.kimi_linear import (KimiLinear, KimiLinearConfig, init_kimi,
+                                                  is_kimi, load_kimi)
 from clipcap_tpu_torch.models.mapper import (MapperConfig, TransformerMapper, init_mapper,
                                              mapper_apply)
 from clipcap_tpu_torch.utils.device import resolve_device
@@ -38,7 +43,7 @@ class ClipCapModel(nn.Module):
     ``model.transformer_mapper(embeddings)`` maps encoder embeddings to the
     LM prefix, as in the reference's demo."""
 
-    def __init__(self, config: Config, language_model: Union[GPT2, DeepseekV2],
+    def __init__(self, config: Config, language_model: Union[GPT2, DeepseekV2, KimiLinear],
                  transformer_mapper: TransformerMapper):
         super().__init__()
         self.config = config
@@ -46,7 +51,7 @@ class ClipCapModel(nn.Module):
         self.transformer_mapper = transformer_mapper
 
     @property
-    def lm_config(self) -> Union[GPT2Config, DeepseekV2Config]:
+    def lm_config(self) -> Union[GPT2Config, DeepseekV2Config, KimiLinearConfig]:
         return self.language_model.config
 
     @property
@@ -101,22 +106,27 @@ def model_from_params(config: Config, params: dict,
                         mapper_from_params(params["mapper"], mapper_config))
 
 
-def init_clipcap(config: Config, lm_config: Union[GPT2Config, DeepseekV2Config, None] = None,
+def init_clipcap(config: Config,
+                 lm_config: Union[GPT2Config, DeepseekV2Config, KimiLinearConfig, None] = None,
                  seed: int = 0) -> ClipCapModel:
     """A ClipCap model as the JAX package's ``init_clipcap`` builds it: the
     mapper from ``init_mapper(seed)``; GPT-2 from ``init_gpt2(lm_config,
-    seed)`` (a DeepSeek-V2 from ``init_dsv2``) when ``lm_config`` is given,
-    else resolved by name (``hf_import.load_gpt2`` or
-    ``deepseek_v2.load_dsv2``: HF weights on disk, or seeded with a warning;
+    seed)`` (a DeepSeek-V2 from ``init_dsv2``, a Kimi-Linear from
+    ``init_kimi``) when ``lm_config`` is given, else resolved by name
+    (``hf_import.load_gpt2``, ``deepseek_v2.load_dsv2`` or
+    ``kimi_linear.load_kimi``: HF weights on disk, or seeded with a warning;
     never fetched)."""
     from clipcap_tpu_torch.convert import gpt2_from_params, mapper_from_params
     from clipcap_tpu_torch.models.hf_import import load_gpt2
 
     if lm_config is None:
         name = config.language_model
-        lm = load_dsv2(name) if is_dsv2(name) else load_gpt2(name)
+        lm = (load_dsv2(name) if is_dsv2(name) else load_kimi(name) if is_kimi(name)
+              else load_gpt2(name))
     elif isinstance(lm_config, DeepseekV2Config):
         lm = init_dsv2(lm_config, seed=seed)
+    elif isinstance(lm_config, KimiLinearConfig):
+        lm = init_kimi(lm_config, seed=seed)
     else:
         lm = gpt2_from_params(init_gpt2(lm_config, seed=seed), lm_config)
     mapper_config = build_mapper_config(config, lm.config.n_embd)
@@ -187,9 +197,10 @@ def clipcap_forward(model: ClipCapModel, tokens: Tensor, embeddings, mask: Tenso
     hidden states ``[B, prefix+T, D]``, which the loss projects onto the
     vocabulary in chunks (``lm_logits``).  ``tokens`` [B, T] must be valid
     ids (pads replaced); ``mask`` [B, T] marks the real tokens."""
-    if isinstance(model.language_model, DeepseekV2):
-        raise NotImplementedError("training with a DeepSeek-V2 language model is not ported "
-                                  "(ROADMAP.md, F12)")
+    if not isinstance(model.language_model, GPT2):
+        lm = model.language_model
+        raise NotImplementedError(f"training with a {type(lm).__name__} language model is not "
+                                  f"ported (ROADMAP.md, {lm.roadmap_item})")
     token_embeddings = gpt2_embed_tokens(model.language_model, tokens, dtype)
     prefix = mapper_apply(model.transformer_mapper, embeddings, dtype=dtype)
     inputs_embeds = torch.cat([prefix, token_embeddings], dim=1)

@@ -1,7 +1,8 @@
 """What every decoder family shares for KV-cached beam decoding: the beam
 cache's layout (the folded prefix in slots ``[0, P)``, then K time-major
 slots a position, :func:`beam_slot`; the beam reorder is an ancestry mask,
-:func:`beam_mask`, so the cache never moves), a step's preamble
+:func:`beam_mask`, so the cache never moves; a recurrent state instead
+moves by parent, :func:`beam_parent`), a step's preamble
 (:func:`beam_step`) and segment runner (CUDA graphs on the card,
 :func:`decode_step_graphs`), a prefill's attention."""
 from __future__ import annotations
@@ -79,6 +80,25 @@ def beam_mask(ancestry: Tensor, beam_size: int, slots: int, offset: int,
         c = torch.as_tensor(shared_len, device=ancestry.device).reshape(-1, 1, 1)
         visible = visible & (pos >= c)
     return torch.where(visible, 0.0, NEG_INF).to(torch.float32)
+
+
+def beam_parent(ancestry: Tensor, beam_size: int, cache_index: int, cache_base: int) -> Tensor:
+    """Each row's parent row ``[B]`` int32 for the step at position
+    ``cache_index``: the row whose state after position ``cache_index − 1``
+    the row's beam continues, ``ancestry[b, cache_index − 1 − cache_base]``
+    within the row's sample; at the first step (``cache_index ==
+    cache_base``) the sample's own row ``b // K``, where the folded prefill
+    left its state.
+
+    Slots never move: attention reads a beam's past through
+    :func:`beam_mask`.  A recurrent state summarises the whole past in one
+    row, so it cannot be masked; it moves by parent, each step reading its
+    parent's row and writing its own."""
+    B = ancestry.shape[0]
+    sample = torch.arange(B, device=ancestry.device) // beam_size
+    if cache_index == cache_base:
+        return sample.to(torch.int32)
+    return (sample * beam_size + ancestry[:, cache_index - 1 - cache_base]).to(torch.int32)
 
 
 @contextlib.contextmanager
@@ -216,8 +236,8 @@ def decode_step_graphs(model: nn.Module, rows: int, beam_size: int, dtype: torch
                        device) -> Optional[StepGraphs]:
     """The CUDA graphs for beam decode steps of ``rows`` rows at
     ``beam_size`` in ``dtype`` on ``device`` (pass them to the family's
-    forward, ``gpt2.gpt2_apply`` or ``deepseek_v2.dsv2_apply``, as
-    ``graphs``); None off a CUDA device, where the segments run eagerly.
+    forward, ``gpt2.gpt2_apply``, ``deepseek_v2.dsv2_apply`` or
+    ``kimi_linear.kimi_apply``, as ``graphs``); None off a CUDA device, where the segments run eagerly.
     No cache form changes a segment's shapes, so every form shares a key's
     graphs."""
     device = torch.device(device)

@@ -32,6 +32,13 @@ per-expert keys).
   run grouped by expert (``ops/moe.py``: the CUDA kernel on the card, its
   twin on the CPU).
 
+The latent attention and the mixture of experts serve Kimi-Linear too
+(``models/kimi_linear.py``): through a config's :class:`Routing`, sigmoid
+scoring with a selection bias, renormalised weights and an expert layer
+that holds a share of its experts (expert parallelism: it routes over all
+of them and computes the part of the output its own experts give); with no
+rope table, attention without rotation (NoPE).
+
 The cache (:func:`init_latent_cache`) holds per layer one buffer
 ``[rows, slots, C + r]``: each position's normalised latent and roped
 ``k_pe``, 576 values at DeepSeek-V2-Lite's widths, in place of GPT-2's
@@ -126,8 +133,41 @@ class DeepseekV2Config:
         """Values a cache slot holds: the latent and the roped ``k_pe``."""
         return self.kv_lora_rank + self.qk_rope_head_dim
 
+    @property
+    def routing(self) -> "Routing":
+        return Routing(self.n_routed_experts, self.num_experts_per_tok, "softmax",
+                       self.norm_topk_prob, self.routed_scaling_factor,
+                       (0, self.n_routed_experts))
+
     def is_moe(self, layer: int) -> bool:
         return layer >= self.first_k_dense_replace and layer % self.moe_layer_freq == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Routing:
+    """A mixture-of-experts layer's router and the experts it holds.
+
+    ``n_experts`` router outputs; the top ``top_k`` by score, ``softmax``
+    or ``sigmoid`` (then chosen by score + the layer's per-expert
+    ``gate.e_score_correction_bias`` and weighed by the unbiased score, as
+    DeepSeek-V3's ``noaux_tc``); the weights renormalised over the chosen
+    experts when ``renormalize``, times ``scale``.  The layer computes the
+    experts ``[held[0], held[1])``: all of them, or one chip's share under
+    expert parallelism, whose output leaves the other experts' part out."""
+    n_experts: int
+    top_k: int
+    scoring: str
+    renormalize: bool
+    scale: float
+    held: Tuple[int, int]
+
+    @property
+    def n_held(self) -> int:
+        return self.held[1] - self.held[0]
+
+    @property
+    def partial(self) -> bool:
+        return self.held != (0, self.n_experts)
 
 
 DSV2_PRESETS: Dict[str, DeepseekV2Config] = {
@@ -293,14 +333,20 @@ class _MLP(nn.Module):
 
 
 class _MoE(nn.Module):
-    def __init__(self, cfg: DeepseekV2Config):
+    """The router over all ``routing.n_experts``, the held experts stacked
+    (local index e is expert ``held[0] + e``), the shared experts."""
+
+    def __init__(self, cfg):
         super().__init__()
-        D, E, Fw = cfg.hidden_size, cfg.n_routed_experts, cfg.moe_intermediate_size
+        r = cfg.routing
+        D, Fw = cfg.hidden_size, cfg.moe_intermediate_size
         self.gate = nn.Module()
-        self.gate.weight = empty_param(E, D)
+        self.gate.weight = empty_param(r.n_experts, D)
+        if r.scoring == "sigmoid":
+            self.gate.e_score_correction_bias = empty_param(r.n_experts)
         self.experts = nn.Module()
-        self.experts.gate_up_proj = empty_param(E, 2 * Fw, D)
-        self.experts.down_proj = empty_param(E, D, Fw)
+        self.experts.gate_up_proj = empty_param(r.n_held, 2 * Fw, D)
+        self.experts.down_proj = empty_param(r.n_held, D, Fw)
         self.shared_experts = _MLP(D, Fw * cfg.n_shared_experts)
 
 
@@ -317,6 +363,8 @@ class DeepseekV2(nn.Module):
     """DeepSeek-V2 weights under HF ``DeepseekV2ForCausalLM`` keys (experts
     stacked).  Built empty: weights come from :func:`init_dsv2`,
     :func:`dsv2_from_hf` or ``load_state_dict(assign=True)``."""
+
+    roadmap_item = "F12"       # what the port does not run with it yet
 
     def __init__(self, cfg: DeepseekV2Config):
         super().__init__()
@@ -440,20 +488,21 @@ def is_dsv2(name_or_path: str) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def init_latent_cache(cfg: DeepseekV2Config, batch: int, max_len: int, dtype=torch.bfloat16,
+def init_latent_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                       beam_size: Optional[int] = None, prefix_slots: int = 0,
-                      device="cpu") -> List[Tensor]:
-    """Zeroed per-layer latent caches ``[rows, slots, C + r]``.  Plain: rows
-    = ``batch``, slot t = position t.  With ``beam_size`` K: rows = ``batch
-    // K`` in the beam layout of ``models/decoding.py``, the folded prefix
-    in slots ``[0, prefix_slots)``."""
+                      device="cpu", layers=None) -> List[Optional[Tensor]]:
+    """Zeroed per-layer latent caches ``[rows, slots, C + r]`` (None for a
+    layer outside ``layers``, default all).  Plain: rows = ``batch``, slot t
+    = position t.  With ``beam_size`` K: rows = ``batch // K`` in the beam
+    layout of ``models/decoding.py``, the folded prefix in slots ``[0,
+    prefix_slots)``."""
     if beam_size is None:
         rows, slots = batch, round_up(max_len, CACHE_SLOT_QUANTUM)
     else:
         rows = batch // beam_size
         slots = round_up(prefix_slots + beam_size * max_len, CACHE_SLOT_QUANTUM)
     return [torch.zeros(rows, slots, cfg.latent_dim, dtype=dtype, device=device)
-            for _ in range(cfg.num_hidden_layers)]
+            if layers is None or i in layers else None for i in range(cfg.num_hidden_layers)]
 
 
 def dsv2_beam_cache(cfg: DeepseekV2Config, bp, groups: int, prefix_len: int, tile_major: bool,
@@ -473,27 +522,30 @@ def dsv2_beam_cache(cfg: DeepseekV2Config, bp, groups: int, prefix_len: int, til
 # ---------------------------------------------------------------------------
 
 
-def _project(attn: _MLA, h: Tensor, cfg: DeepseekV2Config, rope: Tensor):
+def _project(attn: _MLA, h: Tensor, cfg, rope: Optional[Tensor]):
     """``h`` [B, S, D] (normalised) → ``q_nope`` [B, S, H, nope], roped
     ``q_pe`` [B, S, H, r], normalised ``c`` [B, S, C], roped ``k_pe``
-    [B, S, r]; ``rope`` [S, 2, r]."""
+    [B, S, r]; ``rope`` [S, 2, r], or None where the config uses no
+    rotation (NoPE: ``q_pe`` and ``k_pe`` as projected)."""
     B, S, _ = h.shape
     H, r = cfg.num_attention_heads, cfg.qk_rope_head_dim
-    cos, sin = rope[:, 0], rope[:, 1]
     q_nope, q_pe = attn.q_proj(h).view(B, S, H, cfg.q_head_dim).split(
         [cfg.qk_nope_head_dim, r], dim=-1)
     c, k_pe = attn.kv_a_proj_with_mqa(h).split([cfg.kv_lora_rank, r], dim=-1)
+    if rope is None:
+        return q_nope, q_pe, attn.kv_a_layernorm(c), k_pe
+    cos, sin = rope[:, 0], rope[:, 1]
     return (q_nope, apply_rope(q_pe, cos[:, None], sin[:, None]), attn.kv_a_layernorm(c),
             apply_rope(k_pe, cos, sin))
 
 
-def _w_kv_b(attn: _MLA, cfg: DeepseekV2Config, dtype) -> Tensor:
+def _w_kv_b(attn: _MLA, cfg, dtype) -> Tensor:
     """``kv_b_proj``'s weight per head: ``[H, nope + v, C]`` (W_UK | W_UV)."""
     return attn.kv_b_proj.weight.to(dtype).view(
         cfg.num_attention_heads, cfg.qk_nope_head_dim + cfg.v_head_dim, cfg.kv_lora_rank)
 
 
-def _attend(attn: _MLA, h: Tensor, cfg: DeepseekV2Config, rope: Tensor, bias: Tensor,
+def _attend(attn: _MLA, h: Tensor, cfg, rope: Optional[Tensor], bias: Tensor,
             cache: Optional[Tensor], offset: int) -> Tensor:
     """Attention of positions ``[offset, offset + S)`` with K and V
     decompressed from the latents: over the input alone (no cache), or
@@ -513,31 +565,54 @@ def _attend(attn: _MLA, h: Tensor, cfg: DeepseekV2Config, rope: Tensor, bias: Te
     return attn.o_proj(o.transpose(1, 2).reshape(B, S, H * vd))
 
 
-def _route(moe: _MoE, h: Tensor, cfg: DeepseekV2Config) -> Tuple[Tensor, Tensor]:
-    """``h`` [T, D] → (weights [T, k] fp32, experts [T, k]): float32 logits,
-    softmax, greedy top-k, DeepSeek-V2's weighting."""
-    scores = (h.float() @ moe.gate.weight.float().t()).softmax(dim=-1)
-    w, idx = torch.topk(scores, cfg.num_experts_per_tok, dim=-1)
-    if cfg.norm_topk_prob and cfg.num_experts_per_tok > 1:
+def _route(moe: _MoE, h: Tensor, cfg) -> Tuple[Tensor, Tensor]:
+    """``h`` [T, D] → (weights [T, k] fp32, global expert ids [T, k]):
+    float32 logits, then ``cfg.routing``'s scoring, top-k and weighting."""
+    r = cfg.routing
+    logits = h.float() @ moe.gate.weight.float().t()
+    if r.scoring == "sigmoid":
+        scores = logits.sigmoid()
+        bias = moe.gate.e_score_correction_bias.float()
+        idx = torch.topk(scores + bias, r.top_k, dim=-1).indices
+        w = scores.gather(-1, idx)
+    else:
+        w, idx = torch.topk(logits.softmax(dim=-1), r.top_k, dim=-1)
+    if r.renormalize and r.top_k > 1:
         w = w / (w.sum(-1, keepdim=True) + 1e-20)
-    return w * cfg.routed_scaling_factor, idx
+    return w * r.scale, idx
 
 
-def _dispatch(moe: _MoE, h: Tensor, cfg: DeepseekV2Config):
-    """Routing of ``h`` [T, D] → the pairs' rows sorted by expert, the
-    offsets, the inverse order and the weights."""
+def _dispatch(moe: _MoE, h: Tensor, cfg):
+    """Routing of ``h`` [T, D] → the pairs' rows sorted by expert, the held
+    experts' offsets (local ids), the inverse order and the weights.  A
+    layer that holds a share of the experts renumbers them so its own come
+    first (``held[0]`` → 0); the other pairs' rows follow, past the last
+    offset, and are never computed: every step keeps T·k rows."""
+    r = cfg.routing
     w, idx = _route(moe, h, cfg)
-    order, inv, offsets = expert_groups(idx, cfg.n_routed_experts)
-    return h.index_select(0, order // cfg.num_experts_per_tok), offsets, inv, w
+    if r.partial:
+        idx = (idx - r.held[0]) % r.n_experts
+    order, inv, offsets = expert_groups(idx, r.n_experts)
+    return h.index_select(0, order // r.top_k), offsets[:r.n_held + 1], inv, w
 
 
-def _moe(moe: _MoE, h: Tensor, cfg: DeepseekV2Config) -> Tensor:
+def _combine(y: Tensor, offsets: Tensor, inv: Tensor, w: Tensor, cfg) -> Tensor:
+    """``combine`` of the grouped output; a layer holding a share of the
+    experts zeroes the rows of the pairs routed elsewhere first (never
+    written), so their weights add nothing."""
+    if cfg.routing.partial:
+        held = torch.arange(y.shape[0], device=y.device) < offsets[-1]
+        y = y.masked_fill(~held[:, None], 0)
+    return combine(y, inv, w)
+
+
+def _moe(moe: _MoE, h: Tensor, cfg) -> Tensor:
     shape = h.shape
     h2 = h.reshape(-1, shape[-1])
     xs, offsets, inv, w = _dispatch(moe, h2, cfg)
     with annotate("moe.experts"):
         y = grouped_expert_mlp(xs, moe.experts.gate_up_proj, moe.experts.down_proj, offsets)
-    return (combine(y, inv, w) + moe.shared_experts(h2)).view(shape)
+    return (_combine(y, offsets, inv, w, cfg) + moe.shared_experts(h2)).view(shape)
 
 
 # -- beam decode steps: dense segments between the eager work ---------------
@@ -554,7 +629,8 @@ def _moe(moe: _MoE, h: Tensor, cfg: DeepseekV2Config) -> Tensor:
 # before the experts, ``(hidden,)`` at the end.
 
 
-def _prologue(model: DeepseekV2, i: int, x: Tensor, rope: Tensor, K: int) -> tuple:
+def _prologue(model: nn.Module, i: int, x: Tensor, rope: Optional[Tensor], K: int) -> tuple:
+    """Layer ``i``'s latent-attention prologue: ``(x, rope, q, row)``."""
     cfg = model.config
     layer = model.model.layers[i]
     B = x.shape[0]
@@ -565,32 +641,57 @@ def _prologue(model: DeepseekV2, i: int, x: Tensor, rope: Tensor, K: int) -> tup
     return x, rope, q, torch.cat([c, k_pe], dim=-1).view(B // K, K, -1)
 
 
-def _decode_segment(model: DeepseekV2, j: int, carry: Optional[tuple], inputs: tuple,
-                    K: int) -> tuple:
+def _mla_out(layer: nn.Module, kind: str, out: Tensor, carry: tuple, cfg, K: int) -> Tensor:
+    """A latent attention's output ``out`` [R, K, H, C] → ``W_UV``, ``o_proj``."""
+    R, _, H, C = out.shape
+    w_uv = _w_kv_b(layer.self_attn, cfg, out.dtype)[:, cfg.qk_nope_head_dim:]
+    o = torch.einsum("bhc,hvc->bhv", out.reshape(R * K, H, C), w_uv)
+    return layer.self_attn.o_proj(o.reshape(R * K, 1, H * cfg.v_head_dim))
+
+
+def _decode_segment(model: nn.Module, j: int, carry: Optional[tuple], inputs: tuple, K: int,
+                    prologue=_prologue, mixer_out=_mla_out) -> tuple:
+    """Segment ``j`` of a beam decode step.  A family with other token
+    mixers than latent attention passes its own ``prologue`` (layer i's
+    carry before its eager work) and ``mixer_out`` (that work's output →
+    the residual branch)."""
     cfg = model.config
-    if j == 0:
-        x, rope = inputs
-        return _prologue(model, 0, x, rope, K)
+    if j == 0:                          # (x, rope), or (x,) in a family without rotation
+        x, rope = inputs[0], inputs[1] if len(inputs) > 1 else None
+        return prologue(model, 0, x, rope, K)
     kind, i = model.cuts[j - 1]
     layer = model.model.layers[i]
     (out,) = inputs
     x, rope = carry[0], carry[1]
-    if kind == "attn":
-        R, _, H, C = out.shape
-        w_uv = _w_kv_b(layer.self_attn, cfg, out.dtype)[:, cfg.qk_nope_head_dim:]
-        o = torch.einsum("bhc,hvc->bhv", out.reshape(R * K, H, C), w_uv)
-        x = x + layer.self_attn.o_proj(o.reshape(R * K, 1, H * cfg.v_head_dim))
+    if kind == "moe":
+        offsets, inv, w, shared = carry[3:]
+        x = x + (_combine(out, offsets, inv, w, cfg) + shared).view_as(x)
+    else:
+        x = x + mixer_out(layer, kind, out, carry, cfg, K)
         h = layer.post_attention_layernorm(x)
         if cfg.is_moe(i):
             h2 = h.reshape(-1, cfg.hidden_size)
             return (x, rope, *_dispatch(layer.mlp, h2, cfg), layer.mlp.shared_experts(h2))
         x = x + layer.mlp(h)
-    else:
-        inv, w, shared = carry[4:]
-        x = x + (combine(out, inv, w) + shared).view_as(x)
     if i + 1 == cfg.num_hidden_layers:
         return (model.model.norm(x),)
-    return _prologue(model, i + 1, x, rope, K)
+    return prologue(model, i + 1, x, rope, K)
+
+
+def _eager_attn(cache: Tensor, carry: tuple, mask: Tensor, slot: int, K: int, cfg) -> Tensor:
+    """A latent attention's eager work: the K rows' latents into the cache
+    at ``slot``, then :func:`mla_decode` (this module's attribute)."""
+    cache[:, slot:slot + K] = carry[3]
+    with annotate("mla.decode"):
+        return mla_decode(carry[2], cache, mask, slot + K, softmax_scale(cfg), cfg.kv_lora_rank)
+
+
+def _eager_experts(layer: nn.Module, carry: tuple) -> Tensor:
+    """An expert layer's eager work: :func:`grouped_expert_mlp` (this
+    module's attribute) over the sorted rows and the held experts' offsets."""
+    experts = layer.mlp.experts
+    with annotate("moe.experts"):
+        return grouped_expert_mlp(carry[2], experts.gate_up_proj, experts.down_proj, carry[3])
 
 
 def _beam_decode_layers(model: DeepseekV2, x: Tensor, kv_cache: List[Tensor], mask: Tensor,
@@ -598,24 +699,15 @@ def _beam_decode_layers(model: DeepseekV2, x: Tensor, kv_cache: List[Tensor], ma
     """The layers and final norm of one beam decode step → the hidden state
     [B, 1, D]: the segments run through ``steps``; each layer's cache write and
     latent attention, and each MoE layer's grouped experts, eagerly between them."""
-    cfg = model.config
-
     def segment(j, carry, *inputs):
         return _decode_segment(model, j, carry, inputs, K)
 
     carry = steps.run(segment, 0, x, rope)
-    scale = softmax_scale(cfg)
     for j, (kind, i) in enumerate(model.cuts):
         if kind == "attn":
-            cache = kv_cache[i]
-            cache[:, slot:slot + K] = carry[3]
-            with annotate("mla.decode"):
-                out = mla_decode(carry[2], cache, mask, slot + K, scale, cfg.kv_lora_rank)
+            out = _eager_attn(kv_cache[i], carry, mask, slot, K, model.config)
         else:
-            experts = model.model.layers[i].mlp.experts
-            with annotate("moe.experts"):
-                out = grouped_expert_mlp(carry[2], experts.gate_up_proj, experts.down_proj,
-                                         carry[3])
+            out = _eager_experts(model.model.layers[i], carry)
         carry = steps.run(segment, j + 1, out)
     return carry[0]
 

@@ -59,6 +59,10 @@ SIGNATURES = {
     "clipcap_moe_gate_up": [_P] * 4 + [_I] * 3 + [_P],
     # h, w2, offsets, y, E, F, D, stream
     "clipcap_moe_down": [_P] * 4 + [_I] * 3 + [_P],
+    # q, k, v, x_ld, wq, wk, wv, g, g_ld, beta, b_ld, parent, conv_src,
+    # conv_dst, s_src, s_dst, o, B, H, K, dtype, eps, scale, stream
+    "clipcap_kda_decode": [_P] * 3 + [_L] + [_P] * 4 + [_L, _P, _L] + [_P] * 6 + [_I] * 4
+    + [_F, _F, _P],
 }
 
 

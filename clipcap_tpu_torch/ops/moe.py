@@ -1,6 +1,7 @@
 """Routed experts of a mixture-of-experts layer, grouped by expert.
 
-A token's hidden state goes to its top-k experts (DeepSeek-V2: 6 of 64).
+A token's hidden state goes to its top-k experts (DeepSeek-V2: 6 of 64;
+Kimi-Linear: 8 of 256, of which a layer may hold a share).
 :func:`expert_groups` sorts the token-expert pairs by expert on the device
 and gives each expert's rows as a device vector of offsets; the rows of
 the pairs, gathered in that order, go through :func:`grouped_expert_mlp`
@@ -54,7 +55,9 @@ def grouped_expert_mlp_ref(x: Tensor, w13: Tensor, w2: Tensor, offsets: Tensor) 
     """The plain twin: for each expert e with rows, ``h = silu(x·W1ᵀ) ⊙
     (x·W3ᵀ)`` from the fp32 products of its rows ``x[offsets[e]:offsets[e +
     1]]`` with ``w13[e]`` [2F, D] (W1 | W3), rounded to x's dtype, then
-    ``h·w2[e]ᵀ`` in fp32, rounded to x's dtype: the kernels' arithmetic."""
+    ``h·w2[e]ᵀ`` in fp32, rounded to x's dtype: the kernels' arithmetic.
+    Rows past ``offsets[E]`` are not read; their outputs are zero here and
+    unwritten by the kernels."""
     Fw = w2.shape[-1]
     out = torch.zeros(x.shape[0], w2.shape[1], dtype=x.dtype, device=x.device)
     bounds = offsets.tolist()
@@ -75,8 +78,12 @@ def _fail(what: str):
 def grouped_expert_mlp(x: Tensor, w13: Tensor, w2: Tensor, offsets: Tensor) -> Tensor:
     """Each expert's SwiGLU over its rows of ``x`` [M, D] (sorted by expert,
     expert e's at ``[offsets[e], offsets[e + 1])``; ``offsets`` int32
-    [E + 1] on x's device, ``offsets[E] == M``) with the stacked weights
+    [E + 1] on x's device, ``offsets[E] ≤ M``) with the stacked weights
     ``w13`` [E, 2F, D] (gate | up) and ``w2`` [E, D, F] → ``[M, D]``.
+    Rows past ``offsets[E]`` belong to no expert held here (a layer that
+    holds a share of its experts gets a fixed M, whatever lands here): they
+    are never read, and their output rows are left as they are (unwritten
+    on the card, zero from the twin).
 
     A CPU tensor goes to the twin; a CUDA tensor launches the two kernels
     of ``csrc/moe_grouped.cu`` (bf16, contiguous, D a multiple of 128 and F

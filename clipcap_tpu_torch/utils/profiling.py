@@ -23,7 +23,11 @@ The spans on the main paths (each a layer boundary; nested ones inside):
   blocking read of a step) and ``beam.step`` (a step that runs a forward)
   holding ``beam.rank`` — ``inference/beam.py::beam_search_batched``;
 * ``gpt2.blocks`` (the layer loop) and ``gpt2.lm_head`` (every product
-  with the tied head) — ``models/gpt2.py``;
+  with the tied head) — ``models/gpt2.py``; ``dsv2.blocks`` /
+  ``dsv2.lm_head``, ``kimi.blocks`` / ``kimi.lm_head`` the same in the
+  other families, with ``mla.decode`` and ``moe.experts`` around their
+  shared latent attention and grouped experts, and ``kda.decode`` /
+  ``kda.prefill`` around Kimi-Linear's KDA steps;
 * ``train.data_wait`` / ``train.forward`` / ``train.backward`` /
   ``train.optimizer`` — ``train/train.py`` and ``train/step.py``.
 """
