@@ -88,15 +88,28 @@ def linear(x: Tensor, w, b: Optional[Tensor] = None) -> Tensor:
     in the JAX package, ``q`` is widened to the compute dtype, and the
     per-channel scale, cast to the product's dtype, applies to the output
     (``x @ q·diag(s) == (x @ q)·s``).  XLA fuses the widening into the
-    dot; eager PyTorch writes a widened copy of ``q`` on every call."""
+    dot; eager PyTorch writes a widened copy of ``q`` on every call.
+
+    A bias with a dense ``w`` goes into the product: one ``addmm`` over
+    ``x``'s rows, which CUDA runs as one cuBLASLt GEMM whose epilogue adds
+    the bias to the fp32 accumulator before the output is rounded (no
+    broadcast add after it).  ``w`` keeps its layout: cuBLAS reads the
+    ``.t()`` view of a ``Linear`` weight as it is."""
+    linear.calls += 1
     if isinstance(w, Int8Weight):
         y = x @ w.in_out().to(x.dtype)
         y = y * w.s.to(y.dtype)
-    else:
-        y = x @ w.to(x.dtype)
-    if b is not None:
-        y = y + b.to(y.dtype)
-    return y
+        return y if b is None else y + b.to(y.dtype)
+    if b is None:
+        return x @ w.to(x.dtype)
+    linear.bias_in_gemm += 1
+    n_in, n_out = w.shape
+    y = torch.addmm(b.to(x.dtype), x.reshape(-1, n_in), w.to(x.dtype))
+    return y.reshape(*x.shape[:-1], n_out)
+
+
+linear.calls = 0          # calls, on any device
+linear.bias_in_gemm = 0   # calls whose bias went into the GEMM (a dense weight)
 
 
 def embed(table: Tensor, ids: Tensor, dtype: torch.dtype) -> Tensor:
