@@ -216,6 +216,20 @@ Phases (any failure exits non-zero before the last line):
    kernel launches exactly 20 KDA layers × (10 prefix positions + decode
    steps) times.  Information: the kernel's time beside its bound (each
    distinct parent's state read once, every row's written) and the twin.
+15. Granite-4.0-H's Mamba decode step (``run_granite(dev, tag)``): the
+   kernel against its twin at the caption cell's shape (64 samples × 5
+   beams, 128 heads of 64, a state of 128, bf16; a first step from zero
+   state, then parents drawn at random within each sample, two parents a
+   sample, and all five beams on one parent: outputs and states within
+   2e-2 of their scale, windows bit for bit); graphed beam search on a
+   small Granite-4.0-H that holds a share of its experts against the same
+   segments run eagerly (bit-identical); Granite-4.0-H-Small at its
+   published widths with 9 of 72 experts held, seeded bf16 on the card,
+   under the caption cell's beam search (b64, beam 5, 67 new tokens; its
+   second search): the Mamba kernel launches exactly 36 Mamba layers × (10
+   prefix positions + decode steps) times.  Information: the kernel's time
+   beside its bound (each distinct parent's state and window read once,
+   every row's written) and the twin.
 
 Every kernel's row carries its bound (bytes over 3.35 TB/s or operations
 over the data sheet's peak, whichever is larger) and the time of one
@@ -3328,8 +3342,176 @@ def kimi_main_path(dev, tag: str) -> dict:
             "main_path_s": seconds}
 
 
+GRANITE_R, GRANITE_H, GRANITE_C = 64, 128, 128 * 64 + 2 * 128   # samples, heads, xBC
+
+
+def mamba_step_inputs(dev, g, kind: str, dtype=torch.bfloat16):
+    """One Mamba decode step of the Granite cell (64 samples × K beams, 128
+    heads of 64, a state of 128): the step's xBC and dt (views of one
+    ``in_proj`` row, as the decode step passes them), the convolution's taps
+    and bias, A_log, D, dt_bias, and each row's parent within its sample,
+    ``random``, ``repeated`` (two parents a sample) or ``one`` (all K beams
+    on one parent)."""
+    B, H, C = GRANITE_R * K, GRANITE_H, GRANITE_C
+    zxbcdt = torch.randn(B, 8192 + C + H, generator=g, device=dev).to(dtype)
+    xbc, dt = zxbcdt[:, 8192:8192 + C], zxbcdt[:, 8192 + C:]
+    w = (torch.rand(C, 1, 4, generator=g, device=dev) - 0.5).to(dtype)
+    b = (torch.rand(C, generator=g, device=dev) - 0.5).to(dtype)
+    A_log = torch.rand(H, generator=g, device=dev).mul(15).add(1).log().to(dtype)
+    D = torch.ones(H, device=dev, dtype=dtype)
+    dt_bias = (torch.rand(H, generator=g, device=dev) * -4 - 2).to(dtype)
+    beams = {"random": torch.randint(0, K, (B,), generator=g, device=dev),
+             "repeated": torch.randint(0, 2, (B,), generator=g, device=dev) * 2,
+             "one": torch.full((B,), 3, device=dev)}[kind]
+    parent = (torch.arange(B, device=dev) // K * K + beams).to(torch.int32)
+    return (xbc, dt, w, b, A_log, D, dt_bias), parent
+
+
+def run_granite(dev, tag: str) -> dict:
+    """Phase 15 (see the module docstring); returns the kernel's row."""
+    from clipcap_tpu_torch.inference import beam as beam_mod
+    from clipcap_tpu_torch.models import granite_hybrid as gh
+    from clipcap_tpu_torch.ops import mamba
+
+    B, H, C = GRANITE_R * K, GRANITE_H, GRANITE_C
+    g = torch.Generator(device=dev).manual_seed(15)
+    row = {"name": "mamba_decode", "route": "cuda",
+           "source": "clipcap_tpu_torch/csrc/mamba_decode.cu", "replaces": None}
+    launches = mamba.mamba_decode.launches
+    for kind in ("random", "repeated", "one"):
+        args, parent = mamba_step_inputs(dev, g, kind)
+        win = [torch.randn(B, 3, C, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(2)]
+        st = [(torch.randn(B, H, 64, 128, generator=g, device=dev) * 0.1).to(torch.bfloat16)
+              for _ in range(2)]
+        twin_win, twin_st = [w.clone() for w in win], [s.clone() for s in st]
+        fresh = torch.full_like(parent, -1)
+        for t, par in enumerate((fresh, parent)):
+            got = mamba.mamba_decode(*args, par, win[t], win[1 - t], st[t], st[1 - t], K)
+            want = mamba.mamba_decode_ref(*args, par, twin_win[t], twin_win[1 - t], twin_st[t],
+                                          twin_st[1 - t], K)
+            err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+            st_err = float((st[1 - t].float() - twin_st[1 - t].float()).abs().max()
+                           / twin_st[1 - t].float().abs().max())
+            same_win = torch.equal(win[1 - t], twin_win[1 - t])
+            print(f"check [{tag}] mamba_decode {kind} step {t}: output error {err:.3g} of its "
+                  f"scale, state error {st_err:.3g} of its scale, windows equal: {same_win}")
+            if not (err < TOL[torch.bfloat16] and st_err < TOL[torch.bfloat16] and same_win):
+                raise AssertionError(f"mamba_decode {kind} step {t}: error {err}, {st_err}")
+            row[f"rel_err_{kind}_{t}"] = err
+    if mamba.mamba_decode.launches != launches + 6:
+        raise AssertionError("mamba_decode did not launch its kernel")
+
+    args, parent = mamba_step_inputs(dev, g, "random")
+    st = [torch.zeros(B, H, 64, 128, device=dev, dtype=torch.bfloat16) for _ in range(2)]
+    win = [torch.zeros(B, 3, C, device=dev, dtype=torch.bfloat16) for _ in range(2)]
+    call = (*args, parent, win[0], win[1], st[0], st[1], K)
+    parents = int(parent.unique().numel())
+    per_row = H * 64 * 128 * 2 + 3 * C * 2
+    nbytes = ((parents + B) * per_row + B * (C + H) * 2 + B * H * 64 * 2
+              + (C * 5 + 3 * H) * 2 + 4 * B)
+    row.update(bound(nbytes, B * H * 5 * 64 * 128, torch.float32))
+    row.update(timed(lambda: mamba.mamba_decode(*call)))
+    row.update(timed(lambda: mamba.mamba_decode_ref(*call), "twin_"))
+    print(f"time [{tag}] mamba_decode ({B} rows, {parents} distinct parents, {H} heads of 64, "
+          f"state 128): " + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                                      for k, v in row.items() if k.endswith(("ms", "by"))))
+    del args, st, win, call
+
+    cfg = dataclasses.replace(
+        gh.GRANITE_PRESETS["granite-hybrid-test"], hidden_size=256, intermediate_size=128,
+        shared_intermediate_size=256, num_attention_heads=2, num_key_value_heads=1,
+        mamba_n_heads=8, mamba_d_head=64, mamba_d_state=128, num_local_experts=16,
+        num_experts_per_tok=4, experts_held=(4, 12), vocab_size=1000, name="smoke")
+    lm = gh.init_granite(cfg, seed=15).to(dev, torch.bfloat16)
+    prefix = torch.randn(8, P, cfg.hidden_size, generator=g, device=dev)
+    bp = beam_mod.BeamParams(beam_size=K, max_new_tokens=12, stop_token=-1)
+    steps = beam_mod.beam_search_batched.graph_steps
+    beam_mod.beam_search_batched(lm, prefix, bp)
+    graphed = beam_mod.beam_search_batched(lm, prefix, bp)
+    with mock.patch.object(beam_mod, "decode_step_graphs", lambda *a, **k: None):
+        eager = beam_mod.beam_search_batched(lm, prefix, bp)
+    same = all(torch.equal(a, b) for a, b in zip(graphed, eager))
+    graphed_steps = beam_mod.beam_search_batched.graph_steps - steps
+    print(f"check [{tag}] Granite-4.0-H beam search: {graphed_steps} graphed steps; "
+          f"graphed == eager: {same}")
+    if not same:
+        raise AssertionError("graphed Granite-4.0-H decode steps differ from eager ones")
+    del lm
+    row.update(granite_main_path(dev, tag))
+    return row
+
+
+def granite_main_path(dev, tag: str) -> dict:
+    """Granite-4.0-H-Small at its published widths, 9 of 72 experts held,
+    seeded bf16 on the card, under the caption cell's beam search (64
+    prefixes × beam K, N_NEW new tokens): the Mamba kernel launches once per
+    Mamba layer at each prefix position and each decode step.  Counts the
+    second search (the first captures the decode graphs)."""
+    from clipcap_tpu_torch.inference import beam as beam_mod
+    from clipcap_tpu_torch.models import granite_hybrid as gh
+    from clipcap_tpu_torch.models.kimi_linear import inverse_softplus_dt
+    from clipcap_tpu_torch.ops import mamba
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = gh.GRANITE_PRESETS["ibm-granite/granite-4.0-h-small"]
+    g = torch.Generator(device=dev).manual_seed(19)
+    with torch.device("meta"):
+        shapes = [(n, p.shape) for n, p in gh.GraniteHybrid(cfg).named_parameters()]
+    sd = {}
+    for n, shape in shapes:
+        leaf = n.rsplit(".", 1)[-1]
+        if "norm" in n or leaf == "D":
+            sd[n] = torch.ones(shape, dtype=torch.bfloat16, device=dev)
+        elif ".conv1d." in n:
+            sd[n] = (torch.rand(shape, generator=g, device=dev) - 0.5).bfloat16()
+        elif leaf == "A_log":
+            sd[n] = torch.rand(shape, generator=g, device=dev).mul(15).add(1).log().bfloat16()
+        elif leaf == "dt_bias":
+            sd[n] = inverse_softplus_dt(torch.rand(shape, generator=g, device=dev)).bfloat16()
+        else:
+            sd[n] = torch.empty(shape, dtype=torch.bfloat16, device=dev).normal_(0.0, 0.02,
+                                                                                 generator=g)
+    with torch.device("meta"):
+        lm = gh.GraniteHybrid(cfg)
+    lm.load_state_dict(sd, assign=True)
+    del sd
+    n_mamba = sum(cfg.is_mamba(i) for i in range(cfg.num_hidden_layers))
+    prefix = torch.randn(GRANITE_R, P, cfg.hidden_size, generator=g, device=dev)
+    bp = beam_mod.BeamParams(beam_size=K, max_new_tokens=N_NEW, stop_token=-1)
+    f = beam_mod.beam_search_batched
+    f(lm, prefix, bp)
+    steps, graph_steps = f.decode_steps, f.graph_steps
+    mamba.mamba_decode.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = f(lm, prefix, bp)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = mamba.mamba_decode.launches
+    decode_steps, graphed = f.decode_steps - steps, f.graph_steps - graph_steps
+    want = n_mamba * (P + decode_steps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"check [{tag}] Granite-4.0-H-Small at its widths (9 of 72 experts, seeded bf16), "
+          f"beam-{K} b{GRANITE_R}, {N_NEW} new tokens: {launches} Mamba launches (want "
+          f"{n_mamba} Mamba layers x ({P} prefix positions + {decode_steps} decode steps) = "
+          f"{want}); {graphed} of {decode_steps} steps graphed; {seconds:.3f} s, "
+          f"{GRANITE_R / seconds:.2f} captions/s; peak {peak:.2f} GiB")
+    if launches != want:
+        raise AssertionError(f"mamba_decode launched {launches} times, want {want}")
+    if not bool(torch.isfinite(res.scores).all()):
+        raise AssertionError("Granite-4.0-H beam scores are not finite")
+    del lm, prefix, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "main_path_decode_steps": decode_steps,
+            "main_path_s": seconds, "main_path_peak_gib": peak}
+
+
 def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict) -> list:
-    """Phases 3-13 in ``workdir``; returns the kernels' rows.  Phase 10's
+    """Phases 3-15 in ``workdir``; returns the kernels' rows.  Phase 10's
     paths run beside the phases whose models and data they reuse: 10a
     after 6, 10c after 8, 10b after 9; phase 12 reuses phase 8's images."""
     slice_dir, train_dir = workdir / "slice", workdir / "train"
@@ -3405,6 +3587,9 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
     gc.collect()
     torch.cuda.empty_cache()
     kimi_row = run_kimi(dev, name_limit)
+    gc.collect()
+    torch.cuda.empty_cache()
+    granite_row = run_granite(dev, name_limit)
 
     def row(name, source, replaces, **numbers):
         return {"name": name, "route": "cuda", "source": f"clipcap_tpu_torch/csrc/{source}",
@@ -3445,6 +3630,7 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
             **xl_rows["flash_decode_tile_major"]),
         dsv2_row,
         kimi_row,
+        granite_row,
     ]
 
 

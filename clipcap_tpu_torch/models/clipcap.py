@@ -8,12 +8,15 @@ and the reference's torch state dicts;
 :func:`clipcap_loss` is the training loss.
 
 ``language_model`` may also name a DeepSeek-V2 (``deepseek-ai/DeepSeek-V2-Lite``,
-``models/deepseek_v2.py``; seeded with a warning without weights on disk)
-or a Kimi-Linear (``moonshotai/Kimi-Linear-48B-A3B-Instruct``,
+``models/deepseek_v2.py``; seeded with a warning without weights on disk),
+a Kimi-Linear (``moonshotai/Kimi-Linear-48B-A3B-Instruct``,
 ``models/kimi_linear.py``: one chip's share of its experts, 32 of 256;
-always seeded, with a warning): :func:`init_clipcap` builds it, with the
-mapper at its hidden width, and beam search serves it; training with it
-raises ``NotImplementedError``.
+always seeded, with a warning) or a Granite-4.0-H
+(``ibm-granite/granite-4.0-h-small``, ``models/granite_hybrid.py``: one
+chip's share of its experts, 9 of 72; seeded with a warning without
+weights on disk): :func:`init_clipcap` builds it, with the mapper at its
+hidden width, and beam search serves it; training with it raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ from clipcap_tpu_torch.models.deepseek_v2 import (DeepseekV2, DeepseekV2Config, 
                                                   is_dsv2, load_dsv2)
 from clipcap_tpu_torch.models.gpt2 import (GPT2, GPT2Config, get_gpt2_config, gpt2_apply,
                                            gpt2_embed_tokens, init_gpt2, lm_logits)
+from clipcap_tpu_torch.models.granite_hybrid import (GraniteHybrid, GraniteHybridConfig,
+                                                     init_granite, is_granite, load_granite)
 from clipcap_tpu_torch.models.kimi_linear import (KimiLinear, KimiLinearConfig, init_kimi,
                                                   is_kimi, load_kimi)
 from clipcap_tpu_torch.models.mapper import (MapperConfig, TransformerMapper, init_mapper,
@@ -43,7 +48,8 @@ class ClipCapModel(nn.Module):
     ``model.transformer_mapper(embeddings)`` maps encoder embeddings to the
     LM prefix, as in the reference's demo."""
 
-    def __init__(self, config: Config, language_model: Union[GPT2, DeepseekV2, KimiLinear],
+    def __init__(self, config: Config,
+                 language_model: Union[GPT2, DeepseekV2, KimiLinear, GraniteHybrid],
                  transformer_mapper: TransformerMapper):
         super().__init__()
         self.config = config
@@ -51,7 +57,8 @@ class ClipCapModel(nn.Module):
         self.transformer_mapper = transformer_mapper
 
     @property
-    def lm_config(self) -> Union[GPT2Config, DeepseekV2Config, KimiLinearConfig]:
+    def lm_config(self) -> Union[GPT2Config, DeepseekV2Config, KimiLinearConfig,
+                                 GraniteHybridConfig]:
         return self.language_model.config
 
     @property
@@ -107,26 +114,30 @@ def model_from_params(config: Config, params: dict,
 
 
 def init_clipcap(config: Config,
-                 lm_config: Union[GPT2Config, DeepseekV2Config, KimiLinearConfig, None] = None,
+                 lm_config: Union[GPT2Config, DeepseekV2Config, KimiLinearConfig,
+                                  GraniteHybridConfig, None] = None,
                  seed: int = 0) -> ClipCapModel:
     """A ClipCap model as the JAX package's ``init_clipcap`` builds it: the
     mapper from ``init_mapper(seed)``; GPT-2 from ``init_gpt2(lm_config,
     seed)`` (a DeepSeek-V2 from ``init_dsv2``, a Kimi-Linear from
-    ``init_kimi``) when ``lm_config`` is given, else resolved by name
-    (``hf_import.load_gpt2``, ``deepseek_v2.load_dsv2`` or
-    ``kimi_linear.load_kimi``: HF weights on disk, or seeded with a warning;
-    never fetched)."""
+    ``init_kimi``, a Granite-4.0-H from ``init_granite``) when ``lm_config``
+    is given, else resolved by name (``hf_import.load_gpt2``,
+    ``deepseek_v2.load_dsv2``, ``kimi_linear.load_kimi`` or
+    ``granite_hybrid.load_granite``: HF weights on disk, or seeded with a
+    warning; never fetched)."""
     from clipcap_tpu_torch.convert import gpt2_from_params, mapper_from_params
     from clipcap_tpu_torch.models.hf_import import load_gpt2
 
     if lm_config is None:
         name = config.language_model
         lm = (load_dsv2(name) if is_dsv2(name) else load_kimi(name) if is_kimi(name)
-              else load_gpt2(name))
+              else load_granite(name) if is_granite(name) else load_gpt2(name))
     elif isinstance(lm_config, DeepseekV2Config):
         lm = init_dsv2(lm_config, seed=seed)
     elif isinstance(lm_config, KimiLinearConfig):
         lm = init_kimi(lm_config, seed=seed)
+    elif isinstance(lm_config, GraniteHybridConfig):
+        lm = init_granite(lm_config, seed=seed)
     else:
         lm = gpt2_from_params(init_gpt2(lm_config, seed=seed), lm_config)
     mapper_config = build_mapper_config(config, lm.config.n_embd)

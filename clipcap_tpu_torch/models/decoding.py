@@ -2,18 +2,22 @@
 cache's layout (the folded prefix in slots ``[0, P)``, then K time-major
 slots a position, :func:`beam_slot`; the beam reorder is an ancestry mask,
 :func:`beam_mask`, so the cache never moves; a recurrent state instead
-moves by parent, :func:`beam_parent`), a step's preamble
-(:func:`beam_step`) and segment runner (CUDA graphs on the card,
-:func:`decode_step_graphs`), a prefill's attention."""
+moves by parent, :func:`beam_parent`), the caches of that layout
+(:func:`slot_cache`, and :class:`HybridCache` for families that mix
+attention with recurrent layers), a step's preamble (:func:`beam_step`)
+and segment runner (CUDA graphs on the card, :func:`decode_step_graphs`),
+a prefill's attention."""
 from __future__ import annotations
 
 import collections
 import contextlib
-from typing import Dict, List, Optional, Union
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
+from clipcap_tpu_torch.ops.layers import round_up
 from clipcap_tpu_torch.utils.profiling import annotate
 
 Tensor = torch.Tensor
@@ -80,6 +84,73 @@ def beam_mask(ancestry: Tensor, beam_size: int, slots: int, offset: int,
         c = torch.as_tensor(shared_len, device=ancestry.device).reshape(-1, 1, 1)
         visible = visible & (pos >= c)
     return torch.where(visible, 0.0, NEG_INF).to(torch.float32)
+
+
+def slot_cache(batch: int, max_len: int, width: int, dtype=torch.bfloat16,
+               beam_size: Optional[int] = None, prefix_slots: int = 0,
+               device="cpu") -> Tensor:
+    """A zeroed attention layer's cache ``[rows, slots, width]`` (a latent
+    row, or K | V).  Plain: rows = ``batch``, slot t = position t.  With
+    ``beam_size`` K: rows = ``batch // K`` in the beam layout, the folded
+    prefix in slots ``[0, prefix_slots)``."""
+    if beam_size is None:
+        rows, slots = batch, round_up(max_len, CACHE_SLOT_QUANTUM)
+    else:
+        rows = batch // beam_size
+        slots = round_up(prefix_slots + beam_size * max_len, CACHE_SLOT_QUANTUM)
+    return torch.zeros(rows, slots, width, dtype=dtype, device=device)
+
+
+@dataclasses.dataclass
+class HybridCache:
+    """The beam cache of a family that mixes attention with recurrent
+    layers.  Per layer: ``attn`` an attention layer's slot cache (latent
+    rows for Kimi-Linear's MLA, K | V for Granite's GQA; None for a
+    recurrent layer), whose slots never move; ``state`` a recurrent
+    layer's two state buffers and ``conv`` its two convolution windows
+    (None for an attention layer): the step at position t reads buffer
+    t % 2 of each row's parent (:func:`beam_parent`) and writes buffer
+    (t + 1) % 2 of the row."""
+    attn: List[Optional[Tensor]]
+    state: List[Optional[Tuple[Tensor, Tensor]]]
+    conv: List[Optional[Tuple[Tensor, Tensor]]]
+
+    @property
+    def slots(self) -> int:
+        return next(c for c in self.attn if c is not None).shape[1]
+
+
+def init_hybrid_cache(layers: int, recurrent: Sequence[int], slot_width: int,
+                      state_shape: tuple, state_dtype: torch.dtype, window_shape: tuple,
+                      batch: int, max_len: int, dtype=torch.bfloat16,
+                      beam_size: Optional[int] = None, prefix_slots: int = 0,
+                      device="cpu") -> HybridCache:
+    """A :class:`HybridCache` for ``batch`` rows of a model of ``layers``
+    layers: :func:`slot_cache` of ``slot_width`` for each layer not in
+    ``recurrent``; for each one in it two state buffers ``[batch,
+    *state_shape]`` in ``state_dtype`` and two windows ``[batch,
+    *window_shape]`` in ``dtype``, uninitialised (a sequence's first step
+    reads none)."""
+    def pair(shape, dt):
+        return tuple(torch.empty(batch, *shape, dtype=dt, device=device) for _ in range(2))
+
+    rec = set(recurrent)
+    return HybridCache(
+        [None if i in rec else slot_cache(batch, max_len, slot_width, dtype, beam_size,
+                                          prefix_slots, device) for i in range(layers)],
+        [pair(state_shape, state_dtype) if i in rec else None for i in range(layers)],
+        [pair(window_shape, dtype) if i in rec else None for i in range(layers)])
+
+
+def folded_cache_only(bp, tile_major: bool) -> Optional[str]:
+    """The first beam-cache form ``bp`` asks for beyond the folded-prefix
+    bf16/fp32 cache (the only one the latent and hybrid caches have), or
+    None."""
+    for bad, what in ((bp.int8_kv, "int8_kv"), (bp.consolidate_every > 0, "consolidate_every > 0"),
+                      (tile_major, "tile_major"), (not bp.fold_prefix, "fold_prefix=False")):
+        if bad:
+            return what
+    return None
 
 
 def beam_parent(ancestry: Tensor, beam_size: int, cache_index: int, cache_base: int) -> Tensor:
@@ -236,8 +307,8 @@ def decode_step_graphs(model: nn.Module, rows: int, beam_size: int, dtype: torch
                        device) -> Optional[StepGraphs]:
     """The CUDA graphs for beam decode steps of ``rows`` rows at
     ``beam_size`` in ``dtype`` on ``device`` (pass them to the family's
-    forward, ``gpt2.gpt2_apply``, ``deepseek_v2.dsv2_apply`` or
-    ``kimi_linear.kimi_apply``, as ``graphs``); None off a CUDA device, where the segments run eagerly.
+    forward, ``gpt2.gpt2_apply``, ``deepseek_v2.dsv2_apply``,
+    ``kimi_linear.kimi_apply`` or ``granite_hybrid.granite_apply``, as ``graphs``); None off a CUDA device, where the segments run eagerly.
     No cache form changes a segment's shapes, so every form shares a key's
     graphs."""
     device = torch.device(device)

@@ -72,9 +72,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from clipcap_tpu_torch.models.decoding import (CACHE_SLOT_QUANTUM, DecodeGraphs, beam_step,
-                                              causal_bias, softmax_attend)
-from clipcap_tpu_torch.ops.layers import Linear, embed, empty_param, round_up
+from clipcap_tpu_torch.models.decoding import (DecodeGraphs, beam_step, causal_bias,
+                                              folded_cache_only, slot_cache, softmax_attend)
+from clipcap_tpu_torch.ops.layers import Linear, embed, empty_param
 from clipcap_tpu_torch.ops.mla import mla_decode
 from clipcap_tpu_torch.ops.moe import combine, expert_groups, grouped_expert_mlp
 from clipcap_tpu_torch.utils.profiling import annotate
@@ -490,29 +490,21 @@ def is_dsv2(name_or_path: str) -> bool:
 
 def init_latent_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                       beam_size: Optional[int] = None, prefix_slots: int = 0,
-                      device="cpu", layers=None) -> List[Optional[Tensor]]:
-    """Zeroed per-layer latent caches ``[rows, slots, C + r]`` (None for a
-    layer outside ``layers``, default all).  Plain: rows = ``batch``, slot t
-    = position t.  With ``beam_size`` K: rows = ``batch // K`` in the beam
-    layout of ``models/decoding.py``, the folded prefix in slots ``[0,
-    prefix_slots)``."""
-    if beam_size is None:
-        rows, slots = batch, round_up(max_len, CACHE_SLOT_QUANTUM)
-    else:
-        rows = batch // beam_size
-        slots = round_up(prefix_slots + beam_size * max_len, CACHE_SLOT_QUANTUM)
-    return [torch.zeros(rows, slots, cfg.latent_dim, dtype=dtype, device=device)
-            if layers is None or i in layers else None for i in range(cfg.num_hidden_layers)]
+                      device="cpu") -> List[Tensor]:
+    """Zeroed per-layer latent caches ``[rows, slots, C + r]``
+    (``decoding.slot_cache``: plain, or ``beam_size`` beams with the folded
+    prefix in slots ``[0, prefix_slots)``)."""
+    return [slot_cache(batch, max_len, cfg.latent_dim, dtype, beam_size, prefix_slots, device)
+            for _ in range(cfg.num_hidden_layers)]
 
 
 def dsv2_beam_cache(cfg: DeepseekV2Config, bp, groups: int, prefix_len: int, tile_major: bool,
                     dtype, device) -> Tuple[List[Tensor], None]:
     """``gpt2.gpt2_beam_cache``'s contract with the folded-prefix latent cache
     alone: the other forms raise before anything is allocated."""
-    for bad, what in ((bp.int8_kv, "int8_kv"), (bp.consolidate_every > 0, "consolidate_every > 0"),
-                      (tile_major, "tile_major"), (not bp.fold_prefix, "fold_prefix=False")):
-        if bad:
-            _unsupported(f"{what} in beam search")
+    what = folded_cache_only(bp, tile_major)
+    if what:
+        _unsupported(f"{what} in beam search")
     return init_latent_cache(cfg, groups * bp.beam_size, bp.max_new_tokens, dtype,
                              bp.beam_size, prefix_len, device), None
 
@@ -650,11 +642,16 @@ def _mla_out(layer: nn.Module, kind: str, out: Tensor, carry: tuple, cfg, K: int
 
 
 def _decode_segment(model: nn.Module, j: int, carry: Optional[tuple], inputs: tuple, K: int,
-                    prologue=_prologue, mixer_out=_mla_out) -> tuple:
+                    prologue=_prologue, mixer_out=_mla_out,
+                    residual: Optional[float] = None) -> tuple:
     """Segment ``j`` of a beam decode step.  A family with other token
     mixers than latent attention passes its own ``prologue`` (layer i's
     carry before its eager work) and ``mixer_out`` (that work's output →
-    the residual branch)."""
+    the residual branch); one that scales each residual branch before the
+    add (Granite's ``residual_multiplier``) passes the factor."""
+    def add(x: Tensor, branch: Tensor) -> Tensor:
+        return x + (branch if residual is None else branch * residual)
+
     cfg = model.config
     if j == 0:                          # (x, rope), or (x,) in a family without rotation
         x, rope = inputs[0], inputs[1] if len(inputs) > 1 else None
@@ -665,14 +662,14 @@ def _decode_segment(model: nn.Module, j: int, carry: Optional[tuple], inputs: tu
     x, rope = carry[0], carry[1]
     if kind == "moe":
         offsets, inv, w, shared = carry[3:]
-        x = x + (_combine(out, offsets, inv, w, cfg) + shared).view_as(x)
+        x = add(x, (_combine(out, offsets, inv, w, cfg) + shared).view_as(x))
     else:
-        x = x + mixer_out(layer, kind, out, carry, cfg, K)
+        x = add(x, mixer_out(layer, kind, out, carry, cfg, K))
         h = layer.post_attention_layernorm(x)
         if cfg.is_moe(i):
             h2 = h.reshape(-1, cfg.hidden_size)
             return (x, rope, *_dispatch(layer.mlp, h2, cfg), layer.mlp.shared_experts(h2))
-        x = x + layer.mlp(h)
+        x = add(x, layer.mlp(h))
     if i + 1 == cfg.num_hidden_layers:
         return (model.model.norm(x),)
     return prologue(model, i + 1, x, rope, K)

@@ -32,8 +32,8 @@ and ``mlp.experts.down_proj`` [E_held, D, F]).
   parallelism: one chip's share); it routes over all ``num_experts`` and
   adds the held experts' part.
 
-The beam cache (:class:`HybridCache`) holds, beside a latent cache per MLA
-layer in the beam layout of ``models/decoding.py`` (slots never move), two
+The beam cache (``decoding.HybridCache``) holds, beside a latent cache per
+MLA layer in the beam layout of ``models/decoding.py`` (slots never move), two
 float32 state buffers ``[B, H, d, d]`` and two convolution windows ``[B, 3,
 3, H·d]`` per KDA layer: the step at position t reads buffer t % 2 of each
 row's parent (``decoding.beam_parent``) and writes buffer (t + 1) % 2 of
@@ -62,7 +62,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from clipcap_tpu_torch.models import deepseek_v2 as dsv2
-from clipcap_tpu_torch.models.decoding import DecodeGraphs, beam_parent, beam_step, causal_bias
+from clipcap_tpu_torch.models.decoding import (DecodeGraphs, HybridCache, beam_parent, beam_step,
+                                              causal_bias, folded_cache_only, init_hybrid_cache)
 from clipcap_tpu_torch.models.deepseek_v2 import _MLA, _MLP, RMSNorm, Routing, _MoE
 from clipcap_tpu_torch.ops.kda import CONV_TAPS, kda_decode
 from clipcap_tpu_torch.ops.layers import Linear, embed, empty_param
@@ -341,55 +342,31 @@ def load_kimi(name_or_path: str) -> KimiLinear:
 # ---------------------------------------------------------------------------
 
 
-@dataclasses.dataclass
-class HybridCache:
-    """Per layer: ``latent`` an MLA layer's latent cache [R, slots, C + r]
-    (None for KDA layers); ``state`` a KDA layer's two float32 state
-    buffers [B, H, d, d] and ``conv`` its two windows [B, 3, 3, H·d] (q, k,
-    v's last three inputs), position t reading buffer t % 2 and writing
-    buffer (t + 1) % 2 (None for MLA layers)."""
-    latent: List[Optional[Tensor]]
-    state: List[Optional[Tuple[Tensor, Tensor]]]
-    conv: List[Optional[Tuple[Tensor, Tensor]]]
-
-    @property
-    def slots(self) -> int:
-        return next(c for c in self.latent if c is not None).shape[1]
-
-
-def init_hybrid_cache(cfg: KimiLinearConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-                      beam_size: Optional[int] = None, prefix_slots: int = 0,
-                      device="cpu") -> HybridCache:
-    """A cache for ``batch`` rows: the latent caches of
-    ``deepseek_v2.init_latent_cache`` (plain, or ``beam_size`` beams with
-    the folded prefix in slots ``[0, prefix_slots)``) and per KDA layer its
-    buffers, uninitialised (a sequence's first step reads none)."""
-    L = cfg.num_hidden_layers
-    kda = [i for i in range(L) if cfg.is_kda(i)]
+def init_kimi_cache(cfg: KimiLinearConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+                    beam_size: Optional[int] = None, prefix_slots: int = 0,
+                    device="cpu") -> HybridCache:
+    """``decoding.init_hybrid_cache`` for ``batch`` rows: a latent cache
+    ``[rows, slots, C + r]`` per MLA layer (plain, or ``beam_size`` beams
+    with the folded prefix in slots ``[0, prefix_slots)``); per KDA layer
+    two float32 state buffers [B, H, d, d] and two windows [B, 3, 3, H·d]
+    (q, k, v's last three inputs)."""
     la = cfg.linear_attn_config
     H, d = la.num_heads, la.head_dim
-    latent = dsv2.init_latent_cache(cfg, batch, max_len, dtype, beam_size, prefix_slots, device,
-                                    layers=[i for i in range(L) if i not in kda])
-
-    def pair(*shape, dt):
-        return tuple(torch.empty(*shape, dtype=dt, device=device) for _ in range(2))
-
-    state = [pair(batch, H, d, d, dt=torch.float32) if i in kda else None for i in range(L)]
-    conv = [pair(batch, 3, CONV_TAPS - 1, H * d, dt=dtype) if i in kda else None
-            for i in range(L)]
-    return HybridCache(latent, state, conv)
+    kda = [i for i in range(cfg.num_hidden_layers) if cfg.is_kda(i)]
+    return init_hybrid_cache(cfg.num_hidden_layers, kda, cfg.latent_dim, (H, d, d),
+                             torch.float32, (3, CONV_TAPS - 1, H * d), batch, max_len, dtype,
+                             beam_size, prefix_slots, device)
 
 
 def kimi_beam_cache(cfg: KimiLinearConfig, bp, groups: int, prefix_len: int, tile_major: bool,
                     dtype, device) -> Tuple[HybridCache, None]:
     """``gpt2.gpt2_beam_cache``'s contract with the folded-prefix hybrid
     cache alone: the other forms raise before anything is allocated."""
-    for bad, what in ((bp.int8_kv, "int8_kv"), (bp.consolidate_every > 0, "consolidate_every > 0"),
-                      (tile_major, "tile_major"), (not bp.fold_prefix, "fold_prefix=False")):
-        if bad:
-            _unsupported(f"{what} in beam search")
-    return init_hybrid_cache(cfg, groups * bp.beam_size, bp.max_new_tokens, dtype, bp.beam_size,
-                             prefix_len, device), None
+    what = folded_cache_only(bp, tile_major)
+    if what:
+        _unsupported(f"{what} in beam search")
+    return init_kimi_cache(cfg, groups * bp.beam_size, bp.max_new_tokens, dtype, bp.beam_size,
+                           prefix_len, device), None
 
 
 # ---------------------------------------------------------------------------
@@ -491,7 +468,7 @@ def _beam_decode_layers(model: KimiLinear, x: Tensor, cache: HybridCache, mask: 
         if kind == "kda":
             out = _eager_kda(layer.self_attn, carry, cache, i, parent, pos, K)
         elif kind == "attn":
-            out = dsv2._eager_attn(cache.latent[i], carry, mask, slot, K, cfg)
+            out = dsv2._eager_attn(cache.attn[i], carry, mask, slot, K, cfg)
         else:
             out = dsv2._eager_experts(layer, carry)
         carry = steps.run(segment, j + 1, out)
@@ -538,8 +515,8 @@ def kimi_apply(model: KimiLinear, *, input_ids: Optional[Tensor] = None,
     if beam_size is not None:
         _unsupported("a replicated beam prefix (fold_prefix=False)")
 
-    cache = kv_cache if kv_cache is not None else init_hybrid_cache(cfg, B, S, x.dtype,
-                                                                    device=x.device)
+    cache = kv_cache if kv_cache is not None else init_kimi_cache(cfg, B, S, x.dtype,
+                                                                  device=x.device)
     bias = causal_bias(S, offset + S, offset, device=x.device)
     with annotate("kimi.blocks"):
         for i, layer in enumerate(model.model.layers):
@@ -547,7 +524,7 @@ def kimi_apply(model: KimiLinear, *, input_ids: Optional[Tensor] = None,
             if cfg.is_kda(i):
                 x = x + _kda_sequence(layer.self_attn, h, cfg, cache, i, offset)
             else:
-                latent = cache.latent[i] if kv_cache is not None else None
+                latent = cache.attn[i] if kv_cache is not None else None
                 x = x + dsv2._attend(layer.self_attn, h, cfg, None, bias, latent, offset)
             h = layer.post_attention_layernorm(x)
             x = x + (dsv2._moe(layer.mlp, h, cfg) if cfg.is_moe(i) else layer.mlp(h))

@@ -63,6 +63,9 @@ SIGNATURES = {
     # conv_dst, s_src, s_dst, o, B, H, K, dtype, eps, scale, stream
     "clipcap_kda_decode": [_P] * 3 + [_L] + [_P] * 4 + [_L, _P, _L] + [_P] * 6 + [_I] * 4
     + [_F, _F, _P],
+    # xbc, x_ld, dt, dt_ld, w, conv_b, A_log, D, dt_bias, parent, conv_src,
+    # conv_dst, s_src, s_dst, y, B, H, K, dtype, stream
+    "clipcap_mamba_decode": [_P, _L, _P, _L] + [_P] * 11 + [_I] * 4 + [_P],
 }
 
 

@@ -24,10 +24,12 @@ The spans on the main paths (each a layer boundary; nested ones inside):
   holding ``beam.rank`` — ``inference/beam.py::beam_search_batched``;
 * ``gpt2.blocks`` (the layer loop) and ``gpt2.lm_head`` (every product
   with the tied head) — ``models/gpt2.py``; ``dsv2.blocks`` /
-  ``dsv2.lm_head``, ``kimi.blocks`` / ``kimi.lm_head`` the same in the
-  other families, with ``mla.decode`` and ``moe.experts`` around their
-  shared latent attention and grouped experts, and ``kda.decode`` /
-  ``kda.prefill`` around Kimi-Linear's KDA steps;
+  ``dsv2.lm_head``, ``kimi.blocks`` / ``kimi.lm_head``, ``granite.blocks``
+  / ``granite.lm_head`` the same in the other families, with ``mla.decode``
+  and ``moe.experts`` around their shared latent attention and grouped
+  experts, ``kda.decode`` / ``kda.prefill`` around Kimi-Linear's KDA
+  steps, ``mamba.decode`` / ``mamba.prefill`` around Granite-4.0-H's Mamba
+  steps and ``gqa.decode`` around its decode attention;
 * ``train.data_wait`` / ``train.forward`` / ``train.backward`` /
   ``train.optimizer`` — ``train/train.py`` and ``train/step.py``.
 """

@@ -38,7 +38,9 @@ assert {"clipcap_tpu_torch.eval.base", "clipcap_tpu_torch.eval.spice_parser",
         "clipcap_tpu_torch.ops.quant", "clipcap_tpu_torch.utils.export_checkpoint",
         "clipcap_tpu_torch.utils.merge_preprocessed_datasets",
         "clipcap_tpu_torch.utils.scoring", "clipcap_tpu_torch.utils.profiling",
-        "clipcap_tpu_torch.models.kimi_linear", "clipcap_tpu_torch.ops.kda"} <= set(names)
+        "clipcap_tpu_torch.models.kimi_linear", "clipcap_tpu_torch.ops.kda",
+        "clipcap_tpu_torch.models.granite_hybrid", "clipcap_tpu_torch.ops.mamba",
+        "clipcap_tpu_torch.ops.gqa"} <= set(names)
 for name in names:
     importlib.import_module(name)
 bad = sorted(n for n in sys.modules
@@ -81,15 +83,17 @@ def test_no_source_of_the_port_names_clipcap_tpu_in_an_import(tree):
 
 
 @pytest.mark.parametrize("module,families", [
-    ("decoding", ("gpt2", "deepseek_v2", "kimi_linear")),
-    ("deepseek_v2", ("gpt2", "kimi_linear")),
-    ("kimi_linear", ("gpt2",)),
+    ("decoding", ("gpt2", "deepseek_v2", "kimi_linear", "granite_hybrid")),
+    ("deepseek_v2", ("gpt2", "kimi_linear", "granite_hybrid")),
+    ("kimi_linear", ("gpt2", "granite_hybrid")),
+    ("granite_hybrid", ("gpt2",)),
 ])
 def test_decoder_families_meet_only_in_the_shared_decoding_module(module, families):
-    """``models/decoding.py`` holds what every decoder family shares and
-    imports no family; DeepSeek-V2 imports nothing of GPT-2 or Kimi-Linear,
-    and Kimi-Linear, which shares DeepSeek-V2's latent attention and expert
-    layer, nothing of GPT-2."""
+    """``models/decoding.py`` holds what every decoder family shares (the
+    beam layout, the hybrid cache) and imports no family; DeepSeek-V2
+    imports nothing of the others; Kimi-Linear, which shares DeepSeek-V2's
+    latent attention and expert layer, nothing of GPT-2 or Granite-4.0-H;
+    Granite-4.0-H, which shares the expert layer, nothing of GPT-2."""
     path = REPO / "clipcap_tpu_torch" / "models" / f"{module}.py"
     banned = {f"clipcap_tpu_torch.models.{f}" for f in families}
     bad = [m for m in _imports(path) if m in banned]

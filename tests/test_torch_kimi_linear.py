@@ -29,7 +29,7 @@ from clipcap_tpu_torch.inference.beam import BeamParams, beam_search_batched
 from clipcap_tpu_torch.models import deepseek_v2 as dsv2
 from clipcap_tpu_torch.models import kimi_linear as km
 from clipcap_tpu_torch.models.decoding import beam_parent
-from clipcap_tpu_torch.models.kimi_linear import (KIMI_PRESETS, init_hybrid_cache, init_kimi,
+from clipcap_tpu_torch.models.kimi_linear import (KIMI_PRESETS, init_kimi, init_kimi_cache,
                                                   kimi_apply, kimi_embed_tokens)
 from clipcap_tpu_torch.ops import kda, moe
 
@@ -142,7 +142,7 @@ def _beam_run(lm, g, reorders):
     R, K, P, N = 2, 3, 4, len(reorders) + 1
     B = R * K
     prefix = torch.randn(R, P, CFG.hidden_size, generator=g)
-    cache = init_hybrid_cache(CFG, B, N, dtype=torch.float32, beam_size=K, prefix_slots=P)
+    cache = init_kimi_cache(CFG, B, N, dtype=torch.float32, beam_size=K, prefix_slots=P)
     kimi_apply(lm, inputs_embeds=prefix, kv_cache=cache, cache_index=0, return_logits=False)
     own = torch.arange(B) % K
     ancestry = own[:, None].repeat(1, N)
