@@ -25,9 +25,13 @@ def round_up(n: int, m: int) -> int:
 
 
 def gelu_new(x: Tensor) -> Tensor:
-    """GPT-2's tanh-approximated GELU (HF ``gelu_new``)."""
-    c = math.sqrt(2.0 / math.pi)
-    return 0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * x * x * x)))
+    """GPT-2's tanh-approximated GELU (HF ``gelu_new``, ``jax.nn.gelu``'s
+    default): ``0.5·x·(1 + tanh(√(2/π)·(x + 0.044715·x³)))``.
+
+    One ATen ``gelu``: one launch, float32 inside and one rounding to
+    ``x``'s dtype; under autograd one fused ``gelu_backward`` that saves
+    only ``x``."""
+    return F.gelu(x, approximate="tanh")
 
 
 def quick_gelu(x: Tensor) -> Tensor:
@@ -42,7 +46,7 @@ def relu(x: Tensor) -> Tensor:
 ACTIVATIONS = {
     "gelu_new": gelu_new,
     "quick_gelu": quick_gelu,
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),  # jax.nn.gelu's default
+    "gelu": gelu_new,  # jax.nn.gelu's default
     "relu": relu,
 }
 
