@@ -3666,8 +3666,10 @@ def main() -> int:
         raise AssertionError("the port loaded jax or the JAX package")
 
     from clipcap_tpu_torch.inference.beam import beam_search_batched as beam
+    from clipcap_tpu_torch.utils.profiling import ONCE
     print(f"decode graphs: {beam.graph_steps} of {beam.decode_steps} beam decode steps "
-          f"replayed them, {beam.graph_captures} captured them")
+          f"replayed them, {ONCE.counts.get('graphs.capture', 0)} segments captured "
+          f"in {ONCE.totals.get('graphs.capture', 0.0):.2f} s")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(name_limit)

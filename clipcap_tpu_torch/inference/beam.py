@@ -30,8 +30,9 @@ C = 0's up to fp summation order.
 
 On the card each decode step's blocks replay CUDA graphs over their dense
 segments (``models/decoding.py::decode_step_graphs``), captured by the
-first step of each key; the counters ``graph_steps`` and
-``graph_captures`` count the steps that replayed and that captured.
+first step of each key; the counter ``graph_steps`` counts the steps that
+replayed, ``utils/profiling.py::ONCE``'s ``graphs.capture`` the segments
+captured.
 
 Every decoder family runs through :func:`lm_functions`: GPT-2's forward is
 the module global ``gpt2_apply``, DeepSeek-V2's ``dsv2_apply``,
@@ -192,8 +193,6 @@ def beam_search_batched(lm: LM, prefix_embeds: Tensor, bp: BeamParams,
                                        shared_len=c if C > 0 else None, graphs=graphs)
             if replay:
                 _counters.graph_steps += 1
-            elif graphs is not None:
-                _counters.graph_captures += 1
             with annotate("beam.rank"):
                 # Within a beam row, avg order == logit order, so every joint top-K
                 # winner is in its row's top K: rank only those K·K candidates.
@@ -228,7 +227,6 @@ def beam_search_batched(lm: LM, prefix_embeds: Tensor, bp: BeamParams,
 beam_search_batched.decode_steps = 0   # decode steps that ran a forward
 beam_search_batched.host_syncs = 0     # blocking device-to-host reads in the decode loop
 beam_search_batched.graph_steps = 0    # decode steps whose blocks replayed CUDA graphs
-beam_search_batched.graph_captures = 0  # decode steps that captured them
 _counters = beam_search_batched        # the counters' owner, whatever rebinds the name
 
 

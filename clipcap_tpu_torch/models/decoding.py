@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from clipcap_tpu_torch.ops.layers import round_up
-from clipcap_tpu_torch.utils.profiling import annotate
+from clipcap_tpu_torch.utils.profiling import ONCE, annotate
 
 Tensor = torch.Tensor
 
@@ -249,21 +249,24 @@ class StepGraphs:
         return self.outs[i]
 
     def _capture(self, fn) -> None:
-        main = torch.cuda.current_stream()
-        if self.stream is None:
-            self.stream = torch.cuda.Stream()
-            self.pool = torch.cuda.graph_pool_handle()
-        self.stream.wait_stream(main)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(self.stream):
-            fn()                                            # warm-up on the capture stream
-            graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
-            try:
-                out = fn()
-            finally:
-                graph.capture_end()
-        main.wait_stream(self.stream)
-        graph.replay()
+        """Capture one segment: its seconds go to ``ONCE`` as
+        ``graphs.capture``, whose count is the segments captured."""
+        with ONCE.section("graphs.capture"):
+            main = torch.cuda.current_stream()
+            if self.stream is None:
+                self.stream = torch.cuda.Stream()
+                self.pool = torch.cuda.graph_pool_handle()
+            self.stream.wait_stream(main)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(self.stream):
+                fn()                                        # warm-up on the capture stream
+                graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+                try:
+                    out = fn()
+                finally:
+                    graph.capture_end()
+            main.wait_stream(self.stream)
+            graph.replay()
         self.graphs.append(graph)
         self.outs.append(out)
 

@@ -26,6 +26,8 @@ from pathlib import Path
 
 import torch
 
+from clipcap_tpu_torch.utils.profiling import ONCE
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "clipcap_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -126,19 +128,23 @@ def build(path: Path) -> None:
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    """The kernel library, built on first use.  Raises without CUDA."""
+    """The kernel library, built on first use.  Raises without CUDA.  Its
+    seconds go to ``ONCE`` as ``kernels.load``, a build's inside it as
+    ``kernels.build`` (whose count is the process's builds)."""
     if not torch.cuda.is_available():
         raise RuntimeError("the port's CUDA kernels need a CUDA device")
-    path = library_path()
-    if not path.exists():
-        build(path)
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.clipcap_error_string.argtypes = [ctypes.c_int]
-    lib.clipcap_error_string.restype = ctypes.c_char_p
+    with ONCE.section("kernels.load"):
+        path = library_path()
+        if not path.exists():
+            with ONCE.section("kernels.build"):
+                build(path)
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.clipcap_error_string.argtypes = [ctypes.c_int]
+        lib.clipcap_error_string.restype = ctypes.c_char_p
     return lib
 
 

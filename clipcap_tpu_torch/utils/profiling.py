@@ -11,7 +11,20 @@ on ``torch.profiler``.
 * ``timed(fn, *args)`` / ``Timer`` — wall-clock timing; ``timed``
   synchronises the card before the clock stops when the result holds a
   CUDA tensor (launches return before the device has run them).
-  ``Timer.section`` opens a span of the section's name too.
+  ``Timer.section`` opens a span of the section's name too, and records
+  the section open when it began (its parent), so a section's self time is
+  its seconds less its children's.
+* ``ONCE`` — the process's record of one-time work, a ``Timer`` that is
+  always on and never reset by the program (``reset_once`` is for tests):
+  ``first.<span>``, the host seconds of each span's first occurrence in the
+  process (``annotate`` times it whether or not a profiler records; the
+  outermost ones hold the first unit of each layer with every one-time cost
+  inside it: allocator growth, module loading, library handles, GEMM plan
+  choice); ``kernels.load`` (``ops/_build.py::load_library``: hashing the
+  sources, the library's load and bindings) holding ``kernels.build`` (one
+  a ``nvcc`` build); ``graphs.capture`` (``models/decoding.py::StepGraphs``:
+  one a decode segment captured, its warm-up and first replay included).
+  The benchmark's ``setup.*`` metrics read it.
 
 The spans on the main paths (each a layer boundary; nested ones inside):
 
@@ -37,6 +50,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from typing import Any, Callable, Iterator, Optional
 
@@ -63,16 +77,45 @@ def trace(logdir: Optional[str]) -> Iterator[None]:
 
 
 _OFF = contextlib.nullcontext()
+_SEEN: set[str] = set()     # span names entered in this process
 
 
 def annotate(name: str):
     """The span ``name``: a ``record_function`` range while a profiler
     records, else a shared no-op context (no profiler op dispatched, no
     NVTX range pushed).  The flag is a module global that every profiler
-    sets on entry, so it is read through its module on each call."""
+    sets on entry, so it is read through its module on each call.
+
+    A name's first call in the process is also timed into ``ONCE`` as
+    ``first.<name>``; every later call costs one set lookup more than the
+    range alone."""
+    if name not in _SEEN and _claim(name):
+        return _first(name)
+    # ``_range`` inlined: every span call of the main paths comes here.
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return torch.profiler.record_function(name)
+
+
+def _range(name: str):
+    """``annotate``'s range without the first-call record."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def _claim(name: str) -> bool:
+    """Mark ``name`` seen; whether this call was the first to."""
+    with ONCE.lock:
+        first = name not in _SEEN
+        _SEEN.add(name)
+    return first
+
+
+@contextlib.contextmanager
+def _first(name: str) -> Iterator[None]:
+    with ONCE.timed(f"first.{name}"), _range(name):
+        yield
 
 
 def _sync(result: Any) -> None:
@@ -111,26 +154,65 @@ class Timer:
     >>> with t.section("data"): batch = next(loader)
     >>> with t.section("step"): loss = step(batch)
     >>> t.summary()  # {'data': ..., 'step': ...} seconds
+
+    Per section: its seconds (``totals``), its count, the section open
+    when it first began (``parents``, None for an outermost one; one stack
+    for all threads, so work that a blocked caller waits for on another
+    thread, as on autograd's worker, nests under it) and the seconds of the
+    sections opened inside it, so ``self_seconds`` is its seconds less its
+    children's.
     """
 
     def __init__(self) -> None:
         self.totals: dict[str, float] = {}
         self.counts: dict[str, int] = {}
+        self.parents: dict[str, Optional[str]] = {}
+        self.inner: dict[str, float] = {}
+        self.lock = threading.Lock()
+        self._open: list[str] = []
 
     @contextlib.contextmanager
     def section(self, name: str) -> Iterator[None]:
+        with self.timed(name), _range(name):
+            yield
+
+    @contextlib.contextmanager
+    def timed(self, name: str) -> Iterator[None]:
+        """``section`` without the span."""
+        with self.lock:
+            parent = self._open[-1] if self._open else None
+            self.parents.setdefault(name, parent)
+            self._open.append(name)
         t0 = time.perf_counter()
         try:
-            with annotate(name):
-                yield
+            yield
         finally:
             dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
+            with self.lock:
+                self._open.pop()              # sections nest: the newest is this one
+                self.totals[name] = self.totals.get(name, 0.0) + dt
+                self.counts[name] = self.counts.get(name, 0) + 1
+                if parent is not None:
+                    self.inner[parent] = self.inner.get(parent, 0.0) + dt
+
+    def self_seconds(self, name: str) -> float:
+        return self.totals[name] - self.inner.get(name, 0.0)
 
     def summary(self) -> dict[str, float]:
         return dict(self.totals)
 
     def reset(self) -> None:
-        self.totals.clear()
-        self.counts.clear()
+        with self.lock:
+            for d in (self.totals, self.counts, self.parents, self.inner):
+                d.clear()
+            self._open.clear()
+
+
+ONCE = Timer()     # one-time work of the process (module docstring)
+
+
+def reset_once() -> None:
+    """Clear ``ONCE`` and the span names seen, together (for tests)."""
+    with ONCE.lock:
+        _SEEN.clear()
+    ONCE.reset()

@@ -30,6 +30,7 @@ from clipcap_tpu_torch.models.gpt2 import (GPT2_PRESETS, GPT2Config, gpt2_apply,
                                            init_shared_kv)
 from clipcap_tpu_torch.ops.flash_decode import flash_decode_two_phase
 from clipcap_tpu_torch.ops.quant import quantize_gpt2_int8
+from clipcap_tpu_torch.utils.profiling import ONCE
 
 NEVER = -1    # a stop token no step emits: the search runs to max_new_tokens
 FORMS = ["strided", "tile_major", "int8_kv", "consolidated"]
@@ -141,12 +142,11 @@ def test_no_graphs_on_the_cpu(lm):
     """A beam search on the CPU runs its segments eagerly: no graph is
     captured or replayed, and the search counts its steps as before."""
     assert decoding.decode_step_graphs(lm, 6, 3, torch.float32, "cpu") is None
-    before = (beam_search_batched.graph_steps, beam_search_batched.graph_captures,
-              beam_search_batched.decode_steps)
+    before = (beam_search_batched.graph_steps, _captured(), beam_search_batched.decode_steps)
     prefix = torch.randn(2, 4, lm.config.n_embd, generator=torch.Generator().manual_seed(1))
     beam_search_batched(lm, prefix, BeamParams(beam_size=3, max_new_tokens=5,
                                                stop_token=NEVER), dtype=torch.float32)
-    assert (beam_search_batched.graph_steps, beam_search_batched.graph_captures) == before[:2]
+    assert (beam_search_batched.graph_steps, _captured()) == before[:2]
     assert beam_search_batched.decode_steps == before[2] + 4
     if not torch.cuda.is_available():       # else a search on the card may have run first
         assert before[:2] == (0, 0)
@@ -223,6 +223,11 @@ CARD_LM = GPT2Config(vocab_size=1000, n_positions=128, n_embd=128, n_layer=3, n_
                      name="card")
 
 
+def _captured() -> int:
+    """Decode segments captured in the process (``ONCE``'s ``graphs.capture``)."""
+    return ONCE.counts.get("graphs.capture", 0)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -242,18 +247,18 @@ def _params(form, N=12):
 
 
 def _search(lm, prefix, bp, monkeypatch=None):
-    """Beam search → (result, decode steps, graph steps, captures) counted
-    over it; eager (no graphs) where ``monkeypatch`` is given."""
+    """Beam search → (result, decode steps, graph steps, segments captured)
+    counted over it; eager (no graphs) where ``monkeypatch`` is given."""
     if monkeypatch is not None:
         monkeypatch.setattr(beam_mod, "decode_step_graphs", lambda *a, **k: None)
     c = beam_search_batched
-    before = (c.decode_steps, c.graph_steps, c.graph_captures)
+    before = (c.decode_steps, c.graph_steps, _captured())
     res = beam_search_batched(lm, prefix, bp, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     if monkeypatch is not None:
         monkeypatch.undo()
     return res, *(now - was for now, was in zip((c.decode_steps, c.graph_steps,
-                                                 c.graph_captures), before))
+                                                 _captured()), before))
 
 
 def _assert_same(got, want):
@@ -266,7 +271,7 @@ def _assert_same(got, want):
 @pytest.mark.parametrize("form", FORMS + ["int8_weights"])
 def test_graphed_beam_search_matches_eager_segments(cuda, form, monkeypatch):
     """Tokens, lengths and scores bit-identical to the eager segments; the
-    first search of a key captures once, every later step replays."""
+    first search of a key captures each segment once, every later step replays."""
     lm = _card_lm(cuda, weights=torch.float32 if form == "int8_weights" else torch.bfloat16)
     if form == "int8_weights":
         lm = quantize_gpt2_int8(lm)
@@ -277,7 +282,7 @@ def test_graphed_beam_search_matches_eager_segments(cuda, form, monkeypatch):
     assert (steps, graphed, captured) == (bp.max_new_tokens - 1, 0, 0)
     got, steps, graphed, captured = _search(lm, prefix, bp)
     _assert_same(got, want)
-    assert (graphed, captured) == (steps - 1, 1)
+    assert (graphed, captured) == (steps - 1, lm.decode_segments)
     got, steps, graphed, captured = _search(lm, prefix, bp)
     _assert_same(got, want)
     assert (graphed, captured) == (steps, 0)
@@ -296,8 +301,8 @@ def test_two_batch_sizes_capture_a_key_each(cuda, monkeypatch):
         got, steps, graphed, captured = _search(lm, prefix, bp)
         _assert_same(got, eager[name])
         captures += captured
-        assert graphed == steps - captured
-    assert captures == 2
+        assert graphed == steps - (captured > 0)
+    assert captures == 2 * lm.decode_segments
 
 
 @pytest.mark.cuda
@@ -315,7 +320,7 @@ def test_replaced_weights_are_captured_again(cuda, monkeypatch):
     want = _search(lm, prefix, bp, monkeypatch)[0]
     got, steps, graphed, captured = _search(lm, prefix, bp)
     _assert_same(got, want)
-    assert (graphed, captured) == (steps - 1, 1)
+    assert (graphed, captured) == (steps - 1, lm.decode_segments)
     assert not torch.equal(got.scores, before.scores)
     assert math.isfinite(float(got.scores.sum()))
 
@@ -344,4 +349,4 @@ def test_weights_moved_under_the_same_parameters_are_captured_again(cuda, move, 
     want = _search(lm, prefix, bp, monkeypatch)[0]
     got, steps, graphed, captured = _search(lm, prefix, bp)
     _assert_same(got, want)
-    assert (graphed, captured) == (steps - 1, 1)
+    assert (graphed, captured) == (steps - 1, lm.decode_segments)
