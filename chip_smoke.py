@@ -44,7 +44,8 @@ Phases (any failure exits non-zero before the last line):
    entry points: save an ``.npz`` + YAML, ``load(..., device="cuda")``,
    ``get_encoder_from_model``, the mapper, ``generate_beam`` (beam 5) and
    ``generate_nucleus_sampling`` + the CLIP rerank.  Both kernels' launch
-   counts must rise over this run, and fp32 beam-5 tokens through the
+   counts must rise over this run, the encoder's tower call must launch
+   ``quick_gelu`` once a block (12), and fp32 beam-5 tokens through the
    kernels must equal those through the twins (a reference run with the
    decode attention patched to the twin, here only); then the attention
    façade ``sdpa(q, k, v)`` once at ViT-L/14 width (b256, N = 257, 16
@@ -101,7 +102,8 @@ Phases (any failure exits non-zero before the last line):
    partitions, and a webdataset shard of 256 more with ``json/caption``
    captions.  Gates: exit 0, fp32 ``[n, 768]`` finite embeddings, captions
    equal to the sources in key order, ``encoder_embedding_size: 768``,
-   ``patch_embed`` and ``sdpa_packed`` (23 per batch) launched, and the
+   ``patch_embed`` and ``sdpa_packed`` (23 per batch) launched,
+   ``quick_gelu`` launched once a block of every batch (24 × 5), and the
    first 256 images of partition 0 through the same encoder with the patch
    embedding patched to its twin (here only) within cosine 0.999 of the
    written rows.  Information: images/s of each run through the runner
@@ -230,6 +232,15 @@ Phases (any failure exits non-zero before the last line):
    prefix positions + decode steps) times.  Information: the kernel's time
    beside its bound (each distinct parent's state and window read once,
    every row's written) and the twin.
+16. CLIP's QuickGELU (``run_quick_gelu(dev, tag)``, ~1 min): at ViT-L/14
+   b256's ``[256, 257, 4096]`` and ViT-B/32 b128's ``[128, 50, 3072]``
+   bf16, the forward and backward kernels within one bf16 ulp of the
+   float32 formula, one launch a forward call and one a backward call.
+   Information: both kernels at those shapes on both clocks beside their
+   bound (x, and dy, read and the output written once), the plain twin
+   (the eager scale, sigmoid and product: the path before the kernel) and
+   its backward under autograd; the small shape also with the L2 flushed.
+   The tower counts are held on the main path, in phases 3 and 8.
 
 Every kernel's row carries its bound (bytes over 3.35 TB/s or operations
 over the data sheet's peak, whichever is larger) and the time of one
@@ -1073,6 +1084,7 @@ def run_slice(dev, workdir: Path):
     from clipcap_tpu_torch.models.gpt2 import get_gpt2_config
     from clipcap_tpu_torch.ops.attention import sdpa_packed
     from clipcap_tpu_torch.ops.flash_decode import flash_decode, flash_decode_ref
+    from clipcap_tpu_torch.ops.quick_gelu import quick_gelu
     from clipcap_tpu_torch.train.checkpoint import save_params
 
     image = workdir / "image.png"
@@ -1099,9 +1111,11 @@ def run_slice(dev, workdir: Path):
 
     flash_decode.launches = 0
     sdpa_packed.launches = 0
+    quick_gelu.launches = 0
     t0 = time.perf_counter()
     sample = transform(str(image))
     embedding = encoder(sample[None])
+    tower_quick_gelu = quick_gelu.launches
     prefix = model.transformer_mapper(embedding)
     beams = generate_beam(model, tokenizer, prefix, number_to_generate=5, beam_size=K)
     captions = generate_nucleus_sampling(model, tokenizer, prefix, number_to_generate=5,
@@ -1121,6 +1135,11 @@ def run_slice(dev, workdir: Path):
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"the slice never launched the {name} kernel")
+    print(f"slice: the ViT-B/32 tower call launched quick_gelu {tower_quick_gelu} times "
+          f"(gate: its {encoder.config.vision.layers} blocks)")
+    if tower_quick_gelu != encoder.config.vision.layers:
+        raise AssertionError(f"slice: {tower_quick_gelu} quick_gelu launches in a tower call of "
+                             f"{encoder.config.vision.layers} blocks")
     print(f"slice: best beam {beams[0]!r}; rerank sims {np.round(sims, 3).tolist()}")
 
     # fp32 beam 5 through the kernels == through the twins, token for token.
@@ -1968,6 +1987,7 @@ def run_preprocess(dev, workdir: Path, tag: str):
     from clipcap_tpu_torch.models.clip_vit import clip_encode_image
     from clipcap_tpu_torch.ops.attention import sdpa_packed
     from clipcap_tpu_torch.ops.patch_embed import patch_embed, patch_embed_ref
+    from clipcap_tpu_torch.ops.quick_gelu import quick_gelu
 
     t_phase = time.perf_counter()
     raw = workdir / "raw"
@@ -1976,10 +1996,11 @@ def run_preprocess(dev, workdir: Path, tag: str):
           f"{time.perf_counter() - t_phase:.1f} s")
     built = []
     batches = 2 * math.ceil(PRE_FILES / 2 / PRE_BATCH) + math.ceil(PRE_WDS / PRE_BATCH)
-    blocks = clip_vit.get_clip_config(PRE_VARIANT).vision.layers - 1    # sdpa_packed's
+    layers = clip_vit.get_clip_config(PRE_VARIANT).vision.layers
+    blocks = layers - 1    # sdpa_packed's: the last block runs the class token alone
 
     # The main path: every count set to 0 just before, read just after.
-    patch_embed.launches = sdpa_packed.launches = 0
+    patch_embed.launches = sdpa_packed.launches = quick_gelu.launches = 0
     preprocess_cli(dev, "files, 2 partitions",
                    ["--input-dataset", str(raw / "files"), "--output-folder",
                     str(workdir / "out_files"), "--output-partition-count", "2"],
@@ -1989,9 +2010,12 @@ def run_preprocess(dev, workdir: Path, tag: str):
                     "--input-format", "webdataset", "--wds-caption-key", "json/caption",
                     "--output-folder", str(workdir / "out_wds")],
                    built, PRE_WDS)
-    launches = {"patch_embed": patch_embed.launches, "sdpa_packed": sdpa_packed.launches}
-    print(f"preprocess: {batches} batches of <= {PRE_BATCH}; launches {launches}")
-    if launches["patch_embed"] < batches or launches["sdpa_packed"] < blocks * batches:
+    launches = {"patch_embed": patch_embed.launches, "sdpa_packed": sdpa_packed.launches,
+                "quick_gelu": quick_gelu.launches}
+    print(f"preprocess: {batches} batches of <= {PRE_BATCH}; launches {launches} "
+          f"(quick_gelu gate: {layers} blocks x {batches} batches)")
+    if launches["patch_embed"] < batches or launches["sdpa_packed"] < blocks * batches \
+            or launches["quick_gelu"] != layers * batches:
         raise AssertionError(f"preprocess: launches {launches} for {batches} batches")
     check_dataset(workdir / "out_files", [file_captions[0::2], file_captions[1::2]],
                   "files, 2 partitions")
@@ -3442,6 +3466,71 @@ def run_granite(dev, tag: str) -> dict:
     return row
 
 
+# Phase 16's shapes: ViT-L/14 b256's and ViT-B/32 b128's c_fc outputs.
+QUICK_GELU_SHAPES = {"ViT-L/14 b256": (256, 257, 4096), "ViT-B/32 b128": (128, 50, 3072)}
+
+
+def quick_gelu_misses(got, x, dy=None) -> int:
+    """Elements of a QuickGELU kernel's bf16 output (``dy`` given: the input
+    gradient) more than one bf16 ulp (floored at 2^-20) off the float32
+    formula."""
+    from clipcap_tpu_torch.ops.quick_gelu import quick_gelu_backward_plain, quick_gelu_plain
+
+    want = (quick_gelu_plain(x.float()) if dy is None
+            else quick_gelu_backward_plain(x.float(), dy.float()))
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -13))) - 7)
+    return int(((got.float() - want).abs() > ulp).sum())
+
+
+def run_quick_gelu(dev, tag: str) -> dict:
+    """Phase 16 (see the module docstring); returns the kernel's row."""
+    from clipcap_tpu_torch.ops.quick_gelu import quick_gelu, quick_gelu_plain
+
+    row = {"name": "quick_gelu", "route": "cuda",
+           "source": "clipcap_tpu_torch/csrc/quick_gelu.cu", "replaces": None}
+    g = torch.Generator(device=dev).manual_seed(16)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    for label, shape in QUICK_GELU_SHAPES.items():
+        x = (torch.randn(shape, generator=g, device=dev) * 3).bfloat16()
+        dy = torch.randn(shape, generator=g, device=dev).bfloat16()
+        leaf = x.clone().requires_grad_()
+        n0 = quick_gelu.launches
+        y = quick_gelu(leaf)
+        (dx,) = torch.autograd.grad(y, leaf, dy, retain_graph=True)
+        torch.cuda.synchronize()
+        launches = quick_gelu.launches - n0
+        misses = (quick_gelu_misses(y.detach(), x), quick_gelu_misses(dx, x, dy))
+        print(f"check [{tag}] quick_gelu {label} bf16 {tuple(shape)}: forward / backward "
+              f"elements more than one bf16 ulp off the float32 formula {misses}; launches "
+              f"{launches} (one a call each way)")
+        if misses != (0, 0) or launches != 2:
+            raise AssertionError(f"quick_gelu {label}: {misses} off, {launches} launches (want 2)")
+        del dx
+        chain_leaf = x.clone().requires_grad_()
+        chain = quick_gelu_plain(chain_leaf)
+        nbytes = 2 * x.numel() * x.element_size()
+        t = {"forward": {**timed(lambda: quick_gelu(x)), **timed(lambda: quick_gelu_plain(x),
+                                                                  "plain_"),
+                         **bound(nbytes, 5 * x.numel(), torch.bfloat16)},
+             "backward": {**timed(lambda: torch.autograd.grad(y, leaf, dy, retain_graph=True)),
+                          **timed(lambda: torch.autograd.grad(chain, chain_leaf, dy,
+                                                              retain_graph=True), "plain_"),
+                          **bound(3 * x.numel() * x.element_size(), 9 * x.numel(),
+                                  torch.bfloat16)}}
+        if label == "ViT-B/32 b128":    # 39 MB in, 39 MB out: partly L2-resident back to back
+            t["forward"]["cold_device_ms"] = device_ms(lambda: (flush.zero_(), quick_gelu(x)),
+                                                       only="quick_gelu")
+        for way, r in t.items():
+            if r["device_ms"] is not None:
+                r["bound_share"] = r["bound_ms"] / r["device_ms"]
+            print(f"time [{tag}] quick_gelu {way} {label} bf16 {tuple(shape)}: "
+                  + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                              for k, v in r.items()))
+        row["vit_l14_b256" if label.startswith("ViT-L") else "vit_b32_b128"] = t
+        del x, dy, leaf, y, chain_leaf, chain
+    return row
+
+
 def granite_main_path(dev, tag: str) -> dict:
     """Granite-4.0-H-Small at its published widths, 9 of 72 experts held,
     seeded bf16 on the card, under the caption cell's beam search (64
@@ -3511,7 +3600,7 @@ def granite_main_path(dev, tag: str) -> dict:
 
 
 def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict) -> list:
-    """Phases 3-15 in ``workdir``; returns the kernels' rows.  Phase 10's
+    """Phases 3-16 in ``workdir``; returns the kernels' rows.  Phase 10's
     paths run beside the phases whose models and data they reuse: 10a
     after 6, 10c after 8, 10b after 9; phase 12 reuses phase 8's images."""
     slice_dir, train_dir = workdir / "slice", workdir / "train"
@@ -3590,6 +3679,9 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
     gc.collect()
     torch.cuda.empty_cache()
     granite_row = run_granite(dev, name_limit)
+    gc.collect()
+    torch.cuda.empty_cache()
+    quick_gelu_row = run_quick_gelu(dev, name_limit)
 
     def row(name, source, replaces, **numbers):
         return {"name": name, "route": "cuda", "source": f"clipcap_tpu_torch/csrc/{source}",
@@ -3631,6 +3723,7 @@ def run_phases(dev, workdir: Path, name_limit: str, host_line: str, errors: dict
         dsv2_row,
         kimi_row,
         granite_row,
+        quick_gelu_row,
     ]
 
 

@@ -68,6 +68,10 @@ SIGNATURES = {
     # xbc, x_ld, dt, dt_ld, w, conv_b, A_log, D, dt_bias, parent, conv_src,
     # conv_dst, s_src, s_dst, y, B, H, K, dtype, stream
     "clipcap_mamba_decode": [_P, _L, _P, _L] + [_P] * 11 + [_I] * 4 + [_P],
+    # x, out, n, dtype, stream
+    "clipcap_quick_gelu": [_P, _P, _L, _I, _P],
+    # x, dy, dx, n, dtype, stream
+    "clipcap_quick_gelu_backward": [_P, _P, _P, _L, _I, _P],
 }
 
 

@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from clipcap_tpu_torch.ops.quick_gelu import quick_gelu
+
 Tensor = torch.Tensor
 
 
@@ -32,11 +34,6 @@ def gelu_new(x: Tensor) -> Tensor:
     ``x``'s dtype; under autograd one fused ``gelu_backward`` that saves
     only ``x``."""
     return F.gelu(x, approximate="tanh")
-
-
-def quick_gelu(x: Tensor) -> Tensor:
-    """OpenAI CLIP's QuickGELU: ``x * sigmoid(1.702 * x)``."""
-    return x * torch.sigmoid(1.702 * x)
 
 
 def relu(x: Tensor) -> Tensor:
