@@ -36,8 +36,9 @@ captured.
 
 Every decoder family runs through :func:`lm_functions`: GPT-2's forward is
 the module global ``gpt2_apply``, DeepSeek-V2's ``dsv2_apply``,
-Kimi-Linear's ``kimi_apply``, Granite-4.0-H's ``granite_apply``; a family's
-beam-cache constructor refuses the forms its cache lacks.  A family with
+Kimi-Linear's ``kimi_apply``, Granite-4.0-H's ``granite_apply``,
+LongCat-Flash's ``longcat_apply``; a family's beam-cache constructor
+refuses the forms its cache lacks.  A family with
 recurrent state (Kimi-Linear, Granite-4.0-H) moves it by each beam's parent, which its forward reads from the ancestry table
 (``models/decoding.py::beam_parent``): the loop is the same for all.
 """
@@ -59,6 +60,9 @@ from clipcap_tpu_torch.models.granite_hybrid import (GraniteHybrid, granite_appl
                                                      granite_logits)
 from clipcap_tpu_torch.models.kimi_linear import (KimiLinear, kimi_apply, kimi_beam_cache,
                                                   kimi_embed_tokens, kimi_logits)
+from clipcap_tpu_torch.models.longcat_flash import (LongcatFlash, longcat_apply,
+                                                    longcat_beam_cache, longcat_embed_tokens,
+                                                    longcat_logits)
 from clipcap_tpu_torch.utils.profiling import annotate
 
 Tensor = torch.Tensor
@@ -91,20 +95,22 @@ def _rank(avg: Tensor, flat_ids: Tensor, K: int):
     return avg.gather(1, order), flat_ids.gather(1, order)
 
 
-LM = Union[GPT2, DeepseekV2, KimiLinear, GraniteHybrid]
+LM = Union[GPT2, DeepseekV2, KimiLinear, GraniteHybrid, LongcatFlash]
 
 
 def lm_functions(lm: LM):
     """``(forward, embed_tokens, logits, beam_cache)`` of ``lm``'s family,
     read from this module's globals at each call, so a caller that rebinds
-    ``gpt2_apply``, ``dsv2_apply``, ``kimi_apply`` or ``granite_apply`` here
-    is heard."""
+    ``gpt2_apply``, ``dsv2_apply``, ``kimi_apply``, ``granite_apply`` or
+    ``longcat_apply`` here is heard."""
     if isinstance(lm, DeepseekV2):
         return dsv2_apply, dsv2_embed_tokens, dsv2_logits, dsv2_beam_cache
     if isinstance(lm, KimiLinear):
         return kimi_apply, kimi_embed_tokens, kimi_logits, kimi_beam_cache
     if isinstance(lm, GraniteHybrid):
         return granite_apply, granite_embed_tokens, granite_logits, granite_beam_cache
+    if isinstance(lm, LongcatFlash):
+        return longcat_apply, longcat_embed_tokens, longcat_logits, longcat_beam_cache
     return gpt2_apply, gpt2_embed_tokens, lm_logits, gpt2_beam_cache
 
 

@@ -78,7 +78,7 @@ def decode(lm: GPT2, prefix_embeds: Tensor, generator: torch.Generator,
     ``prefix_embeds`` [B, P, D] (mapper prefix, plus any text-prefix
     embeddings); ``prefix_tokens`` [B, Tp] seeds the repetition-penalty
     buffer.  ``generator`` lives on the model's device.  GPT-2 only: a
-    DeepSeek-V2, Kimi-Linear or Granite-4.0-H model raises
+    DeepSeek-V2, Kimi-Linear, Granite-4.0-H or LongCat-Flash model raises
     ``NotImplementedError`` (its captions come from beam search)."""
     if not isinstance(lm, GPT2):
         raise NotImplementedError(f"sampling with a {type(lm).__name__} language model is not "

@@ -14,9 +14,11 @@ a Kimi-Linear (``moonshotai/Kimi-Linear-48B-A3B-Instruct``,
 always seeded, with a warning) or a Granite-4.0-H
 (``ibm-granite/granite-4.0-h-small``, ``models/granite_hybrid.py``: one
 chip's share of its experts, 9 of 72; seeded with a warning without
-weights on disk): :func:`init_clipcap` builds it, with the mapper at its
-hidden width, and beam search serves it; training with it raises
-``NotImplementedError``.
+weights on disk) or a LongCat-Flash (``meituan-longcat/LongCat-Flash-Chat``,
+``models/longcat_flash.py``: one chip's share of its FFN experts, 8 of
+512; seeded with a warning without weights on disk): :func:`init_clipcap`
+builds it, with the mapper at its hidden width, and beam search serves
+it; training with it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -36,6 +38,8 @@ from clipcap_tpu_torch.models.granite_hybrid import (GraniteHybrid, GraniteHybri
                                                      init_granite, is_granite, load_granite)
 from clipcap_tpu_torch.models.kimi_linear import (KimiLinear, KimiLinearConfig, init_kimi,
                                                   is_kimi, load_kimi)
+from clipcap_tpu_torch.models.longcat_flash import (LongcatFlash, LongcatFlashConfig,
+                                                    init_longcat, is_longcat, load_longcat)
 from clipcap_tpu_torch.models.mapper import (MapperConfig, TransformerMapper, init_mapper,
                                              mapper_apply)
 from clipcap_tpu_torch.utils.device import resolve_device
@@ -49,7 +53,8 @@ class ClipCapModel(nn.Module):
     LM prefix, as in the reference's demo."""
 
     def __init__(self, config: Config,
-                 language_model: Union[GPT2, DeepseekV2, KimiLinear, GraniteHybrid],
+                 language_model: Union[GPT2, DeepseekV2, KimiLinear, GraniteHybrid,
+                                       LongcatFlash],
                  transformer_mapper: TransformerMapper):
         super().__init__()
         self.config = config
@@ -58,7 +63,7 @@ class ClipCapModel(nn.Module):
 
     @property
     def lm_config(self) -> Union[GPT2Config, DeepseekV2Config, KimiLinearConfig,
-                                 GraniteHybridConfig]:
+                                 GraniteHybridConfig, LongcatFlashConfig]:
         return self.language_model.config
 
     @property
@@ -115,15 +120,16 @@ def model_from_params(config: Config, params: dict,
 
 def init_clipcap(config: Config,
                  lm_config: Union[GPT2Config, DeepseekV2Config, KimiLinearConfig,
-                                  GraniteHybridConfig, None] = None,
+                                  GraniteHybridConfig, LongcatFlashConfig, None] = None,
                  seed: int = 0) -> ClipCapModel:
     """A ClipCap model as the JAX package's ``init_clipcap`` builds it: the
     mapper from ``init_mapper(seed)``; GPT-2 from ``init_gpt2(lm_config,
     seed)`` (a DeepSeek-V2 from ``init_dsv2``, a Kimi-Linear from
-    ``init_kimi``, a Granite-4.0-H from ``init_granite``) when ``lm_config``
-    is given, else resolved by name (``hf_import.load_gpt2``,
-    ``deepseek_v2.load_dsv2``, ``kimi_linear.load_kimi`` or
-    ``granite_hybrid.load_granite``: HF weights on disk, or seeded with a
+    ``init_kimi``, a Granite-4.0-H from ``init_granite``, a LongCat-Flash
+    from ``init_longcat``) when ``lm_config`` is given, else resolved by
+    name (``hf_import.load_gpt2``, ``deepseek_v2.load_dsv2``,
+    ``kimi_linear.load_kimi``, ``granite_hybrid.load_granite`` or
+    ``longcat_flash.load_longcat``: HF weights on disk, or seeded with a
     warning; never fetched)."""
     from clipcap_tpu_torch.convert import gpt2_from_params, mapper_from_params
     from clipcap_tpu_torch.models.hf_import import load_gpt2
@@ -131,13 +137,16 @@ def init_clipcap(config: Config,
     if lm_config is None:
         name = config.language_model
         lm = (load_dsv2(name) if is_dsv2(name) else load_kimi(name) if is_kimi(name)
-              else load_granite(name) if is_granite(name) else load_gpt2(name))
+              else load_granite(name) if is_granite(name)
+              else load_longcat(name) if is_longcat(name) else load_gpt2(name))
     elif isinstance(lm_config, DeepseekV2Config):
         lm = init_dsv2(lm_config, seed=seed)
     elif isinstance(lm_config, KimiLinearConfig):
         lm = init_kimi(lm_config, seed=seed)
     elif isinstance(lm_config, GraniteHybridConfig):
         lm = init_granite(lm_config, seed=seed)
+    elif isinstance(lm_config, LongcatFlashConfig):
+        lm = init_longcat(lm_config, seed=seed)
     else:
         lm = gpt2_from_params(init_gpt2(lm_config, seed=seed), lm_config)
     mapper_config = build_mapper_config(config, lm.config.n_embd)

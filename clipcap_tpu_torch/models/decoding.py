@@ -311,7 +311,9 @@ def decode_step_graphs(model: nn.Module, rows: int, beam_size: int, dtype: torch
     """The CUDA graphs for beam decode steps of ``rows`` rows at
     ``beam_size`` in ``dtype`` on ``device`` (pass them to the family's
     forward, ``gpt2.gpt2_apply``, ``deepseek_v2.dsv2_apply``,
-    ``kimi_linear.kimi_apply`` or ``granite_hybrid.granite_apply``, as ``graphs``); None off a CUDA device, where the segments run eagerly.
+    ``kimi_linear.kimi_apply``, ``granite_hybrid.granite_apply`` or
+    ``longcat_flash.longcat_apply``, as ``graphs``); None off a CUDA device,
+    where the segments run eagerly.
     No cache form changes a segment's shapes, so every form shares a key's
     graphs."""
     device = torch.device(device)

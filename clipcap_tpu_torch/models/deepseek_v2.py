@@ -32,12 +32,18 @@ per-expert keys).
   run grouped by expert (``ops/moe.py``: the CUDA kernel on the card, its
   twin on the CPU).
 
-The latent attention and the mixture of experts serve Kimi-Linear too
-(``models/kimi_linear.py``): through a config's :class:`Routing`, sigmoid
-scoring with a selection bias, renormalised weights and an expert layer
-that holds a share of its experts (expert parallelism: it routes over all
-of them and computes the part of the output its own experts give); with no
-rope table, attention without rotation (NoPE).
+The latent attention and the mixture of experts serve Kimi-Linear,
+Granite-4.0-H and LongCat-Flash too (``models/kimi_linear.py``,
+``granite_hybrid.py``, ``longcat_flash.py``): through a config's
+:class:`Routing`, sigmoid scoring with a selection bias, renormalised
+weights, zero-computation (identity) experts and an expert layer that
+holds a share of its experts (expert parallelism: it routes over all of
+them and computes the part of the output its own experts give); with no
+rope table, attention without rotation (NoPE); with a config's
+``q_lora_rank``, a query LoRA (``q_a_proj`` → ``q_a_layernorm`` →
+``q_b_proj``) and its ``mla_scales``: q and the normalised latent scaled
+after their projections (LongCat-Flash's ``mla_scale_q_lora``,
+``mla_scale_kv_lora``), the latent stored scaled.
 
 The cache (:func:`init_latent_cache`) holds per layer one buffer
 ``[rows, slots, C + r]``: each position's normalised latent and roped
@@ -52,11 +58,12 @@ latents, then ``W_UV`` and ``o_proj`` (``ops/mla.py::mla_decode``).
 A beam decode step runs as dense segments split at each layer's latent
 attention and at each mixture-of-experts layer's grouped expert products
 (:func:`_decode_segment`); the cache write, :func:`mla_decode` and
-:func:`grouped_expert_mlp` run eagerly between them and are resolved
-through this module's attributes at each call.  On the card the segments
-replay CUDA graphs (``decoding.StepGraphs``, one per key through the model's
-``decode_graphs``); routing (softmax, top-k, the sort by expert and the
-offsets) stays on the device inside them, so no step reads the host.
+:func:`grouped_expert_mlp` (through :func:`_experts`) run eagerly between
+them and are resolved through this module's attributes at each call.  On
+the card the segments replay CUDA graphs (``decoding.StepGraphs``, one per
+key through the model's ``decode_graphs``); routing (softmax, top-k, the
+sort by expert and the offsets) stays on the device inside them, so no
+step reads the host.
 """
 from __future__ import annotations
 
@@ -150,16 +157,33 @@ class Routing:
     ``n_experts`` router outputs; the top ``top_k`` by score, ``softmax``
     or ``sigmoid`` (then chosen by score + the layer's per-expert
     ``gate.e_score_correction_bias`` and weighed by the unbiased score, as
-    DeepSeek-V3's ``noaux_tc``); the weights renormalised over the chosen
-    experts when ``renormalize``, times ``scale``.  The layer computes the
-    experts ``[held[0], held[1])``: all of them, or one chip's share under
-    expert parallelism, whose output leaves the other experts' part out."""
+    DeepSeek-V3's ``noaux_tc``; softmax with a selection bias where
+    ``biased``, as LongCat-Flash's router); the weights renormalised over
+    the chosen experts when ``renormalize``, times ``scale``.  The router
+    has ``zero_experts`` more outputs after the FFN experts
+    (LongCat-Flash's zero-computation experts): an identity expert returns
+    the layer's input, weighed like any other, and every chip computes that
+    part alike.  The layer computes the FFN experts ``[held[0], held[1])``:
+    all of them, or one chip's share under expert parallelism, whose output
+    leaves the other FFN experts' part out."""
     n_experts: int
     top_k: int
     scoring: str
     renormalize: bool
     scale: float
     held: Tuple[int, int]
+    zero_experts: int = 0
+    biased: bool = False
+
+    @property
+    def selection_bias(self) -> bool:
+        """Whether the top-k is chosen by score + ``e_score_correction_bias``."""
+        return self.biased or self.scoring == "sigmoid"
+
+    @property
+    def width(self) -> int:
+        """The router's outputs: the FFN experts, then the zero-computation ones."""
+        return self.n_experts + self.zero_experts
 
     @property
     def n_held(self) -> int:
@@ -308,10 +332,22 @@ class RMSNorm(nn.Module):
 
 
 class _MLA(nn.Module):
+    """The latent attention's projections: ``q_proj``, or with the config's
+    ``q_lora_rank`` the query LoRA ``q_a_proj`` → ``q_a_layernorm`` →
+    ``q_b_proj``; the scales of q and of the normalised latent
+    (``cfg.mla_scales``, None: 1) as plain attributes."""
+
     def __init__(self, cfg: DeepseekV2Config):
         super().__init__()
         D, H = cfg.hidden_size, cfg.num_attention_heads
-        self.q_proj = Linear(D, H * cfg.q_head_dim, bias=False)
+        q_lora = getattr(cfg, "q_lora_rank", None)
+        if q_lora:
+            self.q_a_proj = Linear(D, q_lora, bias=False)
+            self.q_a_layernorm = RMSNorm(q_lora)
+            self.q_b_proj = Linear(q_lora, H * cfg.q_head_dim, bias=False)
+        else:
+            self.q_proj = Linear(D, H * cfg.q_head_dim, bias=False)
+        self.q_scale, self.kv_scale = getattr(cfg, "mla_scales", None) or (None, None)
         self.kv_a_proj_with_mqa = Linear(D, cfg.latent_dim, bias=False)
         self.kv_a_layernorm = RMSNorm(cfg.kv_lora_rank)
         self.kv_b_proj = Linear(cfg.kv_lora_rank,
@@ -341,9 +377,9 @@ class _MoE(nn.Module):
         r = cfg.routing
         D, Fw = cfg.hidden_size, cfg.moe_intermediate_size
         self.gate = nn.Module()
-        self.gate.weight = empty_param(r.n_experts, D)
-        if r.scoring == "sigmoid":
-            self.gate.e_score_correction_bias = empty_param(r.n_experts)
+        self.gate.weight = empty_param(r.width, D)
+        if r.selection_bias:
+            self.gate.e_score_correction_bias = empty_param(r.width)
         self.experts = nn.Module()
         self.experts.gate_up_proj = empty_param(r.n_held, 2 * Fw, D)
         self.experts.down_proj = empty_param(r.n_held, D, Fw)
@@ -521,14 +557,21 @@ def _project(attn: _MLA, h: Tensor, cfg, rope: Optional[Tensor]):
     rotation (NoPE: ``q_pe`` and ``k_pe`` as projected)."""
     B, S, _ = h.shape
     H, r = cfg.num_attention_heads, cfg.qk_rope_head_dim
-    q_nope, q_pe = attn.q_proj(h).view(B, S, H, cfg.q_head_dim).split(
-        [cfg.qk_nope_head_dim, r], dim=-1)
+    if hasattr(attn, "q_proj"):
+        q = attn.q_proj(h)
+    else:
+        q = attn.q_b_proj(attn.q_a_layernorm(attn.q_a_proj(h)))
+    if attn.q_scale is not None:
+        q = q * attn.q_scale
+    q_nope, q_pe = q.view(B, S, H, cfg.q_head_dim).split([cfg.qk_nope_head_dim, r], dim=-1)
     c, k_pe = attn.kv_a_proj_with_mqa(h).split([cfg.kv_lora_rank, r], dim=-1)
+    c = attn.kv_a_layernorm(c)
+    if attn.kv_scale is not None:
+        c = c * attn.kv_scale
     if rope is None:
-        return q_nope, q_pe, attn.kv_a_layernorm(c), k_pe
+        return q_nope, q_pe, c, k_pe
     cos, sin = rope[:, 0], rope[:, 1]
-    return (q_nope, apply_rope(q_pe, cos[:, None], sin[:, None]), attn.kv_a_layernorm(c),
-            apply_rope(k_pe, cos, sin))
+    return q_nope, apply_rope(q_pe, cos[:, None], sin[:, None]), c, apply_rope(k_pe, cos, sin)
 
 
 def _w_kv_b(attn: _MLA, cfg, dtype) -> Tensor:
@@ -559,52 +602,78 @@ def _attend(attn: _MLA, h: Tensor, cfg, rope: Optional[Tensor], bias: Tensor,
 
 def _route(moe: _MoE, h: Tensor, cfg) -> Tuple[Tensor, Tensor]:
     """``h`` [T, D] → (weights [T, k] fp32, global expert ids [T, k]):
-    float32 logits, then ``cfg.routing``'s scoring, top-k and weighting."""
+    float32 logits over the router's width, then ``cfg.routing``'s
+    scoring, top-k and weighting."""
     r = cfg.routing
     logits = h.float() @ moe.gate.weight.float().t()
-    if r.scoring == "sigmoid":
-        scores = logits.sigmoid()
+    scores = logits.sigmoid() if r.scoring == "sigmoid" else logits.softmax(dim=-1)
+    if r.selection_bias:
         bias = moe.gate.e_score_correction_bias.float()
         idx = torch.topk(scores + bias, r.top_k, dim=-1).indices
         w = scores.gather(-1, idx)
     else:
-        w, idx = torch.topk(logits.softmax(dim=-1), r.top_k, dim=-1)
+        w, idx = torch.topk(scores, r.top_k, dim=-1)
     if r.renormalize and r.top_k > 1:
         w = w / (w.sum(-1, keepdim=True) + 1e-20)
     return w * r.scale, idx
 
 
 def _dispatch(moe: _MoE, h: Tensor, cfg):
-    """Routing of ``h`` [T, D] → the pairs' rows sorted by expert, the held
-    experts' offsets (local ids), the inverse order and the weights.  A
-    layer that holds a share of the experts renumbers them so its own come
-    first (``held[0]`` → 0); the other pairs' rows follow, past the last
-    offset, and are never computed: every step keeps T·k rows."""
+    """Routing of ``h`` [T, D] → the pairs' rows sorted by expert, the FFN
+    experts' offsets [E + 1] (local ids), the inverse order and the
+    weights.  A layer that holds a share of the experts renumbers them so
+    its own come first (``held[0]`` → 0): its ``n_held`` experts' rows end
+    at ``offsets[n_held]``; the other FFN pairs' rows follow, never
+    computed, then, from ``offsets[E]``, the zero-computation pairs' (ids
+    past every FFN expert), whose rows are the input itself.  Every step
+    keeps T·k rows."""
     r = cfg.routing
     w, idx = _route(moe, h, cfg)
-    if r.partial:
+    if r.partial and r.zero_experts:
+        idx = torch.where(idx < r.n_experts, (idx - r.held[0]) % r.n_experts, idx)
+    elif r.partial:
         idx = (idx - r.held[0]) % r.n_experts
     order, inv, offsets = expert_groups(idx, r.n_experts)
-    return h.index_select(0, order // r.top_k), offsets[:r.n_held + 1], inv, w
+    return h.index_select(0, order // r.top_k), offsets, inv, w
 
 
-def _combine(y: Tensor, offsets: Tensor, inv: Tensor, w: Tensor, cfg) -> Tensor:
+def _experts(moe, rows: Tensor, offsets: Tensor) -> Tensor:
+    """The held experts' SwiGLU over the sorted rows: this module's
+    :func:`grouped_expert_mlp` with the held experts' offsets ``offsets[:
+    n_held + 1]``, in the span ``moe.experts`` (the prefill's and each
+    decode step's call)."""
+    experts = moe.experts
+    held = offsets[:experts.gate_up_proj.shape[0] + 1]
+    with annotate("moe.experts"):
+        return grouped_expert_mlp(rows, experts.gate_up_proj, experts.down_proj, held)
+
+
+def _combine(y: Tensor, offsets: Tensor, inv: Tensor, w: Tensor, cfg,
+             rows: Optional[Tensor] = None) -> Tensor:
     """``combine`` of the grouped output; a layer holding a share of the
     experts zeroes the rows of the pairs routed elsewhere first (never
-    written), so their weights add nothing."""
-    if cfg.routing.partial:
-        held = torch.arange(y.shape[0], device=y.device) < offsets[-1]
-        y = y.masked_fill(~held[:, None], 0)
+    written), so their weights add nothing; a router with zero-computation
+    experts takes those pairs' ``rows`` (the input) as their output."""
+    r = cfg.routing
+    if r.partial or r.zero_experts:
+        row = torch.arange(y.shape[0], device=y.device)
+        y = y.masked_fill(~(row < offsets[r.n_held])[:, None], 0)
+        if r.zero_experts:
+            y = torch.where((row >= offsets[r.n_experts])[:, None], rows, y)
     return combine(y, inv, w)
+
+
+def _routed(moe, h2: Tensor, cfg) -> Tensor:
+    """The routed experts' part of an expert layer's output for ``h2``
+    [T, D]: the held experts' and the zero-computation experts'."""
+    xs, offsets, inv, w = _dispatch(moe, h2, cfg)
+    return _combine(_experts(moe, xs, offsets), offsets, inv, w, cfg, xs)
 
 
 def _moe(moe: _MoE, h: Tensor, cfg) -> Tensor:
     shape = h.shape
     h2 = h.reshape(-1, shape[-1])
-    xs, offsets, inv, w = _dispatch(moe, h2, cfg)
-    with annotate("moe.experts"):
-        y = grouped_expert_mlp(xs, moe.experts.gate_up_proj, moe.experts.down_proj, offsets)
-    return (_combine(y, offsets, inv, w, cfg) + moe.shared_experts(h2)).view(shape)
+    return (_routed(moe, h2, cfg) + moe.shared_experts(h2)).view(shape)
 
 
 # -- beam decode steps: dense segments between the eager work ---------------
@@ -618,13 +687,21 @@ def _moe(moe: _MoE, h: Tensor, cfg) -> Tensor:
 # weighted sum, the residual, then the next prologue.  The last ends in the
 # final norm.  A segment's outputs (its carry): ``(x, rope, q, row)`` before
 # a latent attention, ``(x, rope, rows, offsets, inv, weights, shared)``
-# before the experts, ``(hidden,)`` at the end.
+# before the experts, ``(hidden,)`` at the end.  With a shortcut (LongCat-
+# Flash's ScMoE) an expert layer's shared part joins the residual after
+# the experts, and its routed part rides at the end of the carries across
+# the next layer, which adds it after its MLP.
 
 
 def _prologue(model: nn.Module, i: int, x: Tensor, rope: Optional[Tensor], K: int) -> tuple:
     """Layer ``i``'s latent-attention prologue: ``(x, rope, q, row)``."""
-    cfg = model.config
-    layer = model.model.layers[i]
+    return _mla_prologue(model.model.layers[i], model.config, x, rope, K)
+
+
+def _mla_prologue(layer, cfg, x: Tensor, rope: Optional[Tensor], K: int) -> tuple:
+    """A layer's latent-attention prologue (``input_layernorm``, the
+    projections, RoPE, the absorbed query, the cache row): ``(x, rope, q,
+    row)``."""
     B = x.shape[0]
     q_nope, q_pe, c, k_pe = _project(layer.self_attn, layer.input_layernorm(x), cfg, rope)
     w_uk = _w_kv_b(layer.self_attn, cfg, x.dtype)[:, :cfg.qk_nope_head_dim]
@@ -643,12 +720,18 @@ def _mla_out(layer: nn.Module, kind: str, out: Tensor, carry: tuple, cfg, K: int
 
 def _decode_segment(model: nn.Module, j: int, carry: Optional[tuple], inputs: tuple, K: int,
                     prologue=_prologue, mixer_out=_mla_out,
-                    residual: Optional[float] = None) -> tuple:
+                    residual: Optional[float] = None, layers=None,
+                    shortcut: bool = False) -> tuple:
     """Segment ``j`` of a beam decode step.  A family with other token
     mixers than latent attention passes its own ``prologue`` (layer i's
     carry before its eager work) and ``mixer_out`` (that work's output →
     the residual branch); one that scales each residual branch before the
-    add (Granite's ``residual_multiplier``) passes the factor."""
+    add (Granite's ``residual_multiplier``) passes the factor; one whose
+    cuts index other layers than ``model.model.layers`` (LongCat-Flash's
+    halves of a double layer) passes them.  With ``shortcut`` an expert
+    layer adds only its shared part (LongCat-Flash: the dense ``mlps[0]``)
+    to the residual; its routed part is carried, last, through the next
+    layer's segments and added after that layer's MLP (ScMoE)."""
     def add(x: Tensor, branch: Tensor) -> Tensor:
         return x + (branch if residual is None else branch * residual)
 
@@ -657,12 +740,16 @@ def _decode_segment(model: nn.Module, j: int, carry: Optional[tuple], inputs: tu
         x, rope = inputs[0], inputs[1] if len(inputs) > 1 else None
         return prologue(model, 0, x, rope, K)
     kind, i = model.cuts[j - 1]
-    layer = model.model.layers[i]
+    layer = (model.model.layers if layers is None else layers)[i]
     (out,) = inputs
     x, rope = carry[0], carry[1]
     if kind == "moe":
         offsets, inv, w, shared = carry[3:]
-        x = add(x, (_combine(out, offsets, inv, w, cfg) + shared).view_as(x))
+        routed = _combine(out, offsets, inv, w, cfg, carry[2])
+        if shortcut:
+            x = add(x, shared.view_as(x))
+            return (*prologue(model, i + 1, x, rope, K), routed.view_as(x))
+        x = add(x, (routed + shared).view_as(x))
     else:
         x = add(x, mixer_out(layer, kind, out, carry, cfg, K))
         h = layer.post_attention_layernorm(x)
@@ -670,6 +757,8 @@ def _decode_segment(model: nn.Module, j: int, carry: Optional[tuple], inputs: tu
             h2 = h.reshape(-1, cfg.hidden_size)
             return (x, rope, *_dispatch(layer.mlp, h2, cfg), layer.mlp.shared_experts(h2))
         x = add(x, layer.mlp(h))
+        if shortcut and i > 0 and cfg.is_moe(i - 1):
+            x = x + carry[-1]
     if i + 1 == cfg.num_hidden_layers:
         return (model.model.norm(x),)
     return prologue(model, i + 1, x, rope, K)
@@ -684,11 +773,9 @@ def _eager_attn(cache: Tensor, carry: tuple, mask: Tensor, slot: int, K: int, cf
 
 
 def _eager_experts(layer: nn.Module, carry: tuple) -> Tensor:
-    """An expert layer's eager work: :func:`grouped_expert_mlp` (this
-    module's attribute) over the sorted rows and the held experts' offsets."""
-    experts = layer.mlp.experts
-    with annotate("moe.experts"):
-        return grouped_expert_mlp(carry[2], experts.gate_up_proj, experts.down_proj, carry[3])
+    """An expert layer's eager work: :func:`_experts` (this module's
+    attribute) over the sorted rows and the FFN experts' offsets."""
+    return _experts(layer.mlp, carry[2], carry[3])
 
 
 def _beam_decode_layers(model: DeepseekV2, x: Tensor, kv_cache: List[Tensor], mask: Tensor,

@@ -38,7 +38,8 @@ The spans on the main paths (each a layer boundary; nested ones inside):
 * ``gpt2.blocks`` (the layer loop) and ``gpt2.lm_head`` (every product
   with the tied head) — ``models/gpt2.py``; ``dsv2.blocks`` /
   ``dsv2.lm_head``, ``kimi.blocks`` / ``kimi.lm_head``, ``granite.blocks``
-  / ``granite.lm_head`` the same in the other families, with ``mla.decode``
+  / ``granite.lm_head``, ``longcat.blocks`` / ``longcat.lm_head`` the same
+  in the other families, with ``mla.decode``
   and ``moe.experts`` around their shared latent attention and grouped
   experts, ``kda.decode`` / ``kda.prefill`` around Kimi-Linear's KDA
   steps, ``mamba.decode`` / ``mamba.prefill`` around Granite-4.0-H's Mamba

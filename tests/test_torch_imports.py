@@ -40,7 +40,7 @@ assert {"clipcap_tpu_torch.eval.base", "clipcap_tpu_torch.eval.spice_parser",
         "clipcap_tpu_torch.utils.scoring", "clipcap_tpu_torch.utils.profiling",
         "clipcap_tpu_torch.models.kimi_linear", "clipcap_tpu_torch.ops.kda",
         "clipcap_tpu_torch.models.granite_hybrid", "clipcap_tpu_torch.ops.mamba",
-        "clipcap_tpu_torch.ops.gqa"} <= set(names)
+        "clipcap_tpu_torch.ops.gqa", "clipcap_tpu_torch.models.longcat_flash"} <= set(names)
 for name in names:
     importlib.import_module(name)
 bad = sorted(n for n in sys.modules
@@ -83,17 +83,21 @@ def test_no_source_of_the_port_names_clipcap_tpu_in_an_import(tree):
 
 
 @pytest.mark.parametrize("module,families", [
-    ("decoding", ("gpt2", "deepseek_v2", "kimi_linear", "granite_hybrid")),
-    ("deepseek_v2", ("gpt2", "kimi_linear", "granite_hybrid")),
-    ("kimi_linear", ("gpt2", "granite_hybrid")),
-    ("granite_hybrid", ("gpt2",)),
+    ("decoding", ("gpt2", "deepseek_v2", "kimi_linear", "granite_hybrid", "longcat_flash")),
+    ("deepseek_v2", ("gpt2", "kimi_linear", "granite_hybrid", "longcat_flash")),
+    ("kimi_linear", ("gpt2", "granite_hybrid", "longcat_flash")),
+    ("granite_hybrid", ("gpt2", "longcat_flash")),
+    ("longcat_flash", ("gpt2", "kimi_linear", "granite_hybrid")),
 ])
 def test_decoder_families_meet_only_in_the_shared_decoding_module(module, families):
     """``models/decoding.py`` holds what every decoder family shares (the
     beam layout, the hybrid cache) and imports no family; DeepSeek-V2
     imports nothing of the others; Kimi-Linear, which shares DeepSeek-V2's
-    latent attention and expert layer, nothing of GPT-2 or Granite-4.0-H;
-    Granite-4.0-H, which shares the expert layer, nothing of GPT-2."""
+    latent attention and expert layer, nothing of GPT-2, Granite-4.0-H or
+    LongCat-Flash; Granite-4.0-H, which shares the expert layer, nothing of
+    GPT-2 or LongCat-Flash; LongCat-Flash, which shares the latent
+    attention, the expert layer and the decode segments, nothing of the
+    others."""
     path = REPO / "clipcap_tpu_torch" / "models" / f"{module}.py"
     banned = {f"clipcap_tpu_torch.models.{f}" for f in families}
     bad = [m for m in _imports(path) if m in banned]
